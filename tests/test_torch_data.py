@@ -1,0 +1,108 @@
+"""Parity of the port's synthetic data (``data/``) with the JAX package:
+raycast VLP-16 sweeps from the same ``World`` arrays, and IMU / odometry
+streams sampled along the same analytic trajectory, in float64.
+
+Tolerances: both sides evaluate the same closed forms in f64, so values
+agree to ~1e-9. A ray that grazes a box edge could in principle flip hit
+and miss on an ulp; the poses below keep every ray clear of that, so the
+hit masks must match exactly."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from vil_sensor_fusion_tpu.core import lie as JL
+from vil_sensor_fusion_tpu.data import raycast as JR
+from vil_sensor_fusion_tpu.data import scenarios as JSC
+from vil_sensor_fusion_tpu.data import synthetic as JS
+from vil_sensor_fusion_tpu_torch import convert
+from vil_sensor_fusion_tpu_torch.data import raycast as TR
+from vil_sensor_fusion_tpu_torch.data import scenarios as TSC
+from vil_sensor_fusion_tpu_torch.data import synthetic as TS
+
+DT = jnp.float64
+
+
+def _pose(x, y, yaw):
+    q = JL.so3_exp_quat(jnp.array([0.0, 0.0, yaw], DT))
+    return JL.pose_make(q, jnp.array([x, y, 1.5], DT))
+
+
+@pytest.mark.parametrize("pose", [(0.0, 0.0, 0.0), (7.3, 1.1, 0.4)])
+def test_raycast_matches_jax(pose):
+    world = JR.town_world(n_boxes=28, seed=0, dtype=DT)
+    p = _pose(*pose)
+    sj = JR.raycast(world, p)
+    st = TR.raycast(convert.to_torch(world, "cpu"), torch.tensor(
+        np.asarray(p)))
+    np.testing.assert_array_equal(st.mask.numpy(), np.asarray(sj.mask))
+    np.testing.assert_allclose(st.rng.numpy(), np.asarray(sj.rng),
+                               rtol=1e-10, atol=1e-9)
+    np.testing.assert_allclose(st.xyz.numpy(), np.asarray(sj.xyz),
+                               rtol=1e-10, atol=1e-9)
+
+
+def test_sweep_series_matches_jax():
+    world = JR.town_world(n_boxes=12, seed=3, dtype=DT)
+    poses = jnp.stack([_pose(0.4 * i, 0.1 * i, 0.03 * i) for i in range(3)])
+    sj = JR.sweep_series(world, poses)
+    st = TR.sweep_series(convert.to_torch(world, "cpu"),
+                         torch.from_numpy(np.asarray(poses)))
+    assert tuple(st.xyz.shape) == (3, 16, 1800, 3)
+    np.testing.assert_array_equal(st.mask.numpy(), np.asarray(sj.mask))
+    np.testing.assert_allclose(st.xyz.numpy(), np.asarray(sj.xyz),
+                               rtol=1e-10, atol=1e-9)
+
+
+def test_town_world_is_seeded_and_clears_the_street():
+    """Drawn from numpy (JAX's PRNG cannot be reproduced), so only the
+    structure matches the JAX world: one ground plane, n boxes, none of
+    them straddling the street |y| < 8 m at its centre line."""
+    a = TR.town_world(n_boxes=28, seed=5, dtype=torch.float64)
+    b = TR.town_world(n_boxes=28, seed=5, dtype=torch.float64)
+    j = JR.town_world(n_boxes=28, seed=5, dtype=DT)
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f))
+        assert tuple(getattr(a, f).shape) == np.asarray(getattr(j, f)).shape
+    cy = 0.5 * (a.box_min[:, 1] + a.box_max[:, 1])
+    assert bool((cy.abs() >= 8.0).all())
+
+
+def test_sample_imu_and_odometry_match_jax():
+    """The town trajectory's IMU stream (forward-mode derivatives of the
+    analytic path) and noise-free odometry stream."""
+    t = np.arange(150) / 200.0
+    tj = JSC._town_traj()
+    tt = TSC._town_traj()
+    ij = JS.sample_imu(tj, jnp.asarray(t, DT))
+    it = TS.sample_imu(tt, torch.from_numpy(t))
+    np.testing.assert_allclose(it.accel.numpy(), np.asarray(ij.accel),
+                               rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(it.gyro.numpy(), np.asarray(ij.gyro),
+                               rtol=1e-9, atol=1e-9)
+    oj = JS.sample_odometry(tj, jnp.asarray(t[::10], DT))
+    ot = TS.sample_odometry(tt, torch.from_numpy(t[::10]))
+    np.testing.assert_allclose(ot.poses.numpy(), np.asarray(oj.poses),
+                               atol=1e-12)
+    np.testing.assert_allclose(ot.cov.numpy(), np.asarray(oj.cov))
+    vj = jax.vmap(tj.vel_fn)(jnp.asarray(t[:5], DT))
+    vt = torch.stack([tt.vel_fn(torch.tensor(x, dtype=torch.float64))
+                      for x in t[:5]])
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), atol=1e-12)
+
+
+def test_odometry_noise_comes_from_the_generator():
+    """Noise only with a ``torch.Generator``; the same seed gives the same
+    stream, and the noise has the requested scale."""
+    tt = TSC._town_traj()
+    t = torch.arange(400, dtype=torch.float64) / 20.0
+    clean = TS.sample_odometry(tt, t)
+    a = TS.sample_odometry(tt, t, 0.05, 0.01,
+                           generator=torch.Generator().manual_seed(3))
+    b = TS.sample_odometry(tt, t, 0.05, 0.01,
+                           generator=torch.Generator().manual_seed(3))
+    assert torch.equal(a.poses, b.poses)
+    d = (a.poses[:, 4:] - clean.poses[:, 4:]).std().item()
+    assert 0.04 < d < 0.06

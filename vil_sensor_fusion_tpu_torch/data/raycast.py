@@ -1,0 +1,138 @@
+"""Analytic LiDAR simulation: raycast ground plane + box worlds.
+
+Port of the LiDAR half of ``vil_sensor_fusion_tpu/data/raycast.py``
+(``World``, ``town_world``, ``cast``, ``raycast``, ``sweep_series``). Worlds
+are drawn from a ``numpy.random.Generator``: JAX's PRNG stream cannot be
+reproduced here, so a port world equals a JAX world only when its arrays
+are handed over (``convert.to_torch``), not when built from the same seed.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import lie
+from ..frontends.lidar.rangeimage import (
+    AZIMUTH, RINGS, Sweep, VLP16_ELEVATIONS_DEG)
+
+
+class World(NamedTuple):
+    """Planes: n·x + d = 0 with n unit; boxes: AABBs."""
+
+    plane_n: torch.Tensor     # (P, 3)
+    plane_d: torch.Tensor     # (P,)
+    box_min: torch.Tensor     # (B, 3)
+    box_max: torch.Tensor     # (B, 3)
+
+
+def town_world(n_boxes: int = 24, seed: int = 0, extent: float = 60.0,
+               dtype=torch.float32, device=None) -> World:
+    """Ground plane + random 'buildings' scattered around the origin,
+    cleared of a central street (|y| ≥ 8 m) so trajectories don't collide."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-extent, extent, (n_boxes, 2))
+    cy = centers[:, 1]
+    cy = np.where(np.abs(cy) < 8.0, np.sign(cy + 1e-3) * 8.0 + cy, cy)
+    centers = np.stack([centers[:, 0], cy], axis=-1)
+    sizes = rng.uniform(2.0, 8.0, (n_boxes, 2))
+    heights = rng.uniform(3.0, 12.0, (n_boxes,))
+    bmin = np.concatenate([centers - sizes / 2, np.zeros((n_boxes, 1))], -1)
+    bmax = np.concatenate([centers + sizes / 2, heights[:, None]], -1)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return World(plane_n=t([[0.0, 0.0, 1.0]]), plane_d=t([0.0]),
+                 box_min=t(bmin), box_max=t(bmax))
+
+
+def cast(
+    world: World,
+    origin: torch.Tensor,        # (3,) world-frame ray origin
+    dirs: torch.Tensor,          # (..., 3) world-frame unit directions
+    min_range: float = 0.5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest hit distance t (inf = miss) and the surface normal at the
+    hit (oriented against the ray)."""
+    dtype, device = dirs.dtype, dirs.device
+    o = origin
+    batch = dirs.shape[:-1]
+
+    if world.plane_n.shape[0]:
+        num = -(world.plane_n @ o + world.plane_d)                 # (P,)
+        den = torch.einsum("pk,...k->...p", world.plane_n, dirs)   # (..., P)
+        t_pl = num / torch.where(torch.abs(den) < 1e-9, 1e-9, den)
+        t_pl = torch.where((t_pl > min_range) & (den != 0), t_pl, torch.inf)
+        i_pl = torch.argmin(t_pl, dim=-1)
+        t_plane = torch.gather(t_pl, -1, i_pl[..., None])[..., 0]
+        n_plane = world.plane_n[i_pl]                              # (..., 3)
+        s = -torch.sign(torch.einsum("...k,...k->...", n_plane, dirs))
+        n_plane = n_plane * s[..., None]
+    else:
+        t_plane = torch.full(batch, torch.inf, dtype=dtype, device=device)
+        n_plane = torch.zeros(batch + (3,), dtype=dtype, device=device)
+
+    if world.box_min.shape[0]:
+        safe = torch.where(torch.abs(dirs) < 1e-9, 1e-9, dirs)
+        t1 = (world.box_min - o) / safe[..., None, :]              # (..., B, 3)
+        t2 = (world.box_max - o) / safe[..., None, :]
+        tlo = torch.minimum(t1, t2)
+        thi = torch.maximum(t1, t2)
+        tmin = torch.amax(tlo, dim=-1)                             # (..., B)
+        tmax = torch.amin(thi, dim=-1)
+        hit = (tmax >= tmin) & (tmin > min_range)
+        t_bx = torch.where(hit, tmin, torch.inf)
+        i_bx = torch.argmin(t_bx, dim=-1)
+        t_box = torch.gather(t_bx, -1, i_bx[..., None])[..., 0]
+        tlo_w = torch.gather(
+            tlo, -2, i_bx[..., None, None].expand(batch + (1, 3)))[..., 0, :]
+        axis = torch.argmax(tlo_w, dim=-1)
+        n_box = torch.nn.functional.one_hot(axis, 3).to(dtype)
+        n_box = n_box * -torch.sign(torch.gather(dirs, -1, axis[..., None]))
+    else:
+        t_box = torch.full(batch, torch.inf, dtype=dtype, device=device)
+        n_box = torch.zeros(batch + (3,), dtype=dtype, device=device)
+
+    use_box = t_box < t_plane
+    t = torch.where(use_box, t_box, t_plane)
+    n = torch.where(use_box[..., None], n_box, n_plane)
+    return t, n
+
+
+def _ray_dirs(dtype, device=None) -> torch.Tensor:
+    """(R, A, 3) unit ray directions in the sensor frame (VLP-16 grid)."""
+    elev = torch.deg2rad(torch.as_tensor(VLP16_ELEVATIONS_DEG, dtype=dtype,
+                                         device=device))
+    az = ((torch.arange(AZIMUTH, dtype=dtype, device=device) + 0.5)
+          / AZIMUTH * 2 * torch.pi - torch.pi)
+    ce, se = torch.cos(elev)[:, None], torch.sin(elev)[:, None]
+    ca, sa = torch.cos(az)[None, :], torch.sin(az)[None, :]
+    return torch.stack([ce * ca, ce * sa, se * torch.ones_like(ca)], dim=-1)
+
+
+def raycast(world: World, pose: torch.Tensor, max_range: float = 120.0,
+            min_range: float = 0.5) -> Sweep:
+    """Cast the full VLP-16 grid from ``pose`` (world_T_sensor); returns an
+    organized :class:`Sweep` in the sensor frame."""
+    dtype = pose.dtype
+    dirs_s = _ray_dirs(dtype, pose.device)
+    q = lie.pose_quat(pose)
+    o = lie.pose_trans(pose)
+    dirs = lie.quat_rotate(q[None, None, :], dirs_s)
+
+    t, _ = cast(world, o, dirs, min_range=min_range)
+    valid = (t < max_range).to(dtype)
+    t_safe = torch.where(valid > 0, t, 0.0)
+    pts_w = o + t_safe[..., None] * dirs
+    pts_s = lie.quat_rotate(lie.quat_conjugate(q)[None, None, :], pts_w - o)
+    return Sweep(xyz=pts_s * valid[..., None], rng=t_safe, mask=valid)
+
+
+def sweep_series(world: World, poses: torch.Tensor,
+                 max_range: float = 120.0) -> Sweep:
+    """(T, 7) poses → stacked Sweeps (T, R, A, ·), one raycast at a time."""
+    sweeps = [raycast(world, p, max_range) for p in poses]
+    return Sweep(*(torch.stack(f, dim=0) for f in zip(*sweeps)))

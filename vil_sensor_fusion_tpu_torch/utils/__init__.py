@@ -1,0 +1,8 @@
+"""Failure detection and elastic recovery."""
+
+from . import health
+from .health import (HealthLimits, all_finite, check_state,
+                     finite_fraction, guarded_update, wrap_step)
+
+__all__ = ["health", "HealthLimits", "all_finite", "check_state",
+           "finite_fraction", "guarded_update", "wrap_step"]
