@@ -9,12 +9,17 @@ result line:
 2. Build the hand-written k-NN kernel (``csrc/knn.cu``) from source.
 3. Kernel vs plain PyTorch (``ops.knn.knn_torch``) on the card, at the four
    k-NN shapes of the main path and at edge cases; kernel and plain times.
-4. The slice: LiDAR odometry → degeneracy gate → fusion (``fusion.vil.
-   run_vil``) over the 4 s ``town`` drive at the bench's operating point,
-   with a noisy VIO stand-in; counts the kernel's launches, prints ATE and
-   the wall time of a warm second run.
-5. CPU cross-check: the first 10 sweeps and their events again with every
-   tensor on the CPU (plain k-NN), compared with the card's run.
+4. The full path at the bench's rig: the 4 s ``town`` drive's 80 camera
+   frames (800×600, fov 100°) and camera-frame sweep points rendered on the
+   card (untimed), then the image tracker (pyramids, detection with LiDAR
+   depths, KLT tracking) and ``fusion.vil.run_vil`` (VIO → LiDAR odometry
+   → degeneracy gate → fusion), cold and warm. Prints the warm run's
+   seconds per stage, the tracker's live share, VIO / LiDAR / fused ATE,
+   the gate's keep share and events/s; counts the kernel's launches.
+5. The same ``run_vil`` on the scenario's synthetic feature tracks over a
+   1 s drive, once, with the same checks.
+6. CPU cross-check: the first 10 sweeps and 20 frames of phase 4 again on
+   the CPU from the card's images, compared with the card's run.
 
 The last two lines are a JSON object describing the kernels and
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -22,6 +27,8 @@ The last two lines are a JSON object describing the kernels and
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -36,20 +43,23 @@ from vil_sensor_fusion_tpu_torch import _build, _precision
 from vil_sensor_fusion_tpu_torch import fusion as fu
 from vil_sensor_fusion_tpu_torch import graph as G
 from vil_sensor_fusion_tpu_torch.data import scenarios
-from vil_sensor_fusion_tpu_torch.data import synthetic as syn
 from vil_sensor_fusion_tpu_torch.degeneracy import gate as DG
 from vil_sensor_fusion_tpu_torch.frontends import lidar as L
+from vil_sensor_fusion_tpu_torch.frontends import vio as V
 from vil_sensor_fusion_tpu_torch.frontends.lidar import voxelmap as vm
+from vil_sensor_fusion_tpu_torch.frontends.vio import frontend as F
 from vil_sensor_fusion_tpu_torch.fusion import vil as VIL
 from vil_sensor_fusion_tpu_torch.ops import knn as K
 
 # The four k-NN launches of one sweep (Q queries × M targets): line and
 # plane fits of the scan-to-scan stage, then of the scan-to-map stage.
 MAIN_PATH_SHAPES = ((192, 1920), (384, 3984), (1920, 2048), (3984, 4096))
-DURATION = 4.0          # s of the town drive: 40 sweeps, 80 VIO events
-CROSS_SWEEPS = 10       # sweeps rerun on the CPU
-VIO_TRANS_NOISE = 0.02  # m, white noise of the VIO stand-in
-VIO_ROT_NOISE = 0.002   # rad
+DURATION = 4.0          # s of the town drive: 40 sweeps, 80 VIO frames
+SHORT_DURATION = 1.0    # s of the synthetic-track drive: 10 sweeps
+CROSS_SWEEPS = 10       # sweeps (and their 20 frames) rerun on the CPU
+CAM_W, CAM_H = 800, 600  # the bench's camera (bench.py)
+N_SLOTS = 24            # VIO landmark slots: EKF state 15 + 3·24 = 87
+SWEEP_STRIDE = 4        # azimuth decimation: 16·1800/4 = 7,200 points
 
 
 class Failed(Exception):
@@ -210,11 +220,20 @@ def kernel_vs_plain(dev: torch.device) -> dict:
 
 
 # --------------------------------------------------------------------------
-# Phase 4 and 5: the slice
+# Phases 4-6: the full path
 # --------------------------------------------------------------------------
 
-def main_path_config() -> VIL.VilConfig:
-    """The bench's operating point (bench.py), one sequence."""
+def main_path_config() -> tuple[VIL.VilConfig, F.FrontendConfig]:
+    """The bench's rig and operating point (bench.py), one sequence: the
+    800×600 fov-100° camera with 24 landmark slots, and the LiDAR, gate and
+    fusion settings of the bench."""
+    cam = V.camera.carla_camera(width=CAM_W, height=CAM_H)
+    pose_ic = tuple(float(v) for v in
+                    F.forward_camera_extrinsics(torch.float64))
+    vio = V.VioConfig(num_landmarks=N_SLOTS, update_iters=2, cam=cam,
+                      pose_ic=pose_ic)
+    frontend = F.FrontendConfig(cam=cam, n_candidates=64, min_dist=24.0,
+                                min_score=0.5)
     lidar = L.LidarOdomConfig(
         icp=L.IcpConfig(iters=3, degen_eigval=5.0, fit_every=4,
                         final_refresh=False, eig_sweeps=3),
@@ -224,20 +243,29 @@ def main_path_config() -> VIL.VilConfig:
         surf_map=vm.VoxelMapConfig(capacity=49152, leaf=0.4),
         submap_corners=2048, submap_surfs=4096,
         two_stage=True, undistort=True, guess_is_delta=True)
-    return VIL.VilConfig(
-        lidar=lidar,
+    cfg = VIL.VilConfig(
+        vio=vio, lidar=lidar,
         gate=DG.GateConfig(4.0, -6.0, normalize_per_corr=True),
         fusion=fu.FusionConfig(
             smoother=G.SmootherConfig(window=6, between_slots=12, gn_iters=4),
             sensors=VIL.VilConfig().fusion.sensors, max_imu_per_gap=32))
+    return cfg, frontend
 
 
-class SliceInputs(NamedTuple):
+class DriveInputs(NamedTuple):
+    """One drive's inputs. The VIO input is either the camera stream
+    (``images``, ``cam_points``, ``cam_point_valid``, run through the
+    tracker) or ready feature tracks (``frames``)."""
+
     imu_times: torch.Tensor
     imu_accel: torch.Tensor
     imu_gyro: torch.Tensor
     vio_times: np.ndarray
-    vio: VIL.VioStream
+    imu_windows: tuple              # (accel, gyro, dts), (T_v, N, ·)
+    images: torch.Tensor | None     # (T_v, H, W)
+    cam_points: torch.Tensor | None  # (T_v, P, 3)
+    cam_point_valid: torch.Tensor | None
+    frames: V.VioFrameInput | None
     pose0: torch.Tensor
     vel0: torch.Tensor
     lidar_times: np.ndarray
@@ -245,57 +273,129 @@ class SliceInputs(NamedTuple):
     guess_idx: np.ndarray
 
 
-def make_inputs(dev, duration: float, seed: int = 0):
-    """The town drive on ``dev`` and a noisy VIO stand-in whose twist
-    covariance is its pose covariance (as bench.py feeds the engine)."""
-    sc = scenarios.build("town", duration=duration, dtype=torch.float32,
-                         device=dev, seed=seed)
-    g = torch.Generator().manual_seed(seed)
-    vio = syn.sample_odometry(
-        sc.traj, torch.as_tensor(sc.vio_times, dtype=torch.float32,
-                                 device=dev),
-        VIO_TRANS_NOISE, VIO_ROT_NOISE, generator=g)
+def make_inputs(cfg: VIL.VilConfig, dev, duration: float,
+                from_images: bool, seed: int = 0):
+    """The town drive on ``dev``. With ``from_images`` its camera stream
+    and camera-frame sweep points are rendered on ``dev`` too (untimed);
+    otherwise the VIO gets the scenario's synthetic feature tracks."""
+    sc = scenarios.build("town", duration=duration, vio_cfg=cfg.vio,
+                         dtype=torch.float32, device=dev, seed=seed)
+    images = pts = msk = None
+    if from_images:
+        sync = _sync_of(dev)
+        sync()
+        t0 = time.perf_counter()
+        images, pts, msk = scenarios.render_frontend_inputs(
+            sc, cfg.vio.cam, cfg.vio.pose_ic, sweep_stride=SWEEP_STRIDE)
+        sync()
+        print(f"  rendered {tuple(images.shape)} frames and "
+              f"{tuple(pts.shape)} camera-frame sweep points in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    f = sc.vio_frames
     t0 = torch.zeros((), dtype=torch.float32, device=dev)
-    inputs = SliceInputs(
+    x = DriveInputs(
         imu_times=sc.imu_times, imu_accel=sc.imu_accel, imu_gyro=sc.imu_gyro,
-        vio_times=sc.vio_times,
-        vio=VIL.VioStream(pose=vio.poses, cov=vio.cov, twist_cov=vio.cov),
+        vio_times=sc.vio_times, imu_windows=(f.accel, f.gyro, f.dts),
+        images=images, cam_points=pts, cam_point_valid=msk,
+        frames=None if from_images else f,
         pose0=sc.traj.pose_fn(t0), vel0=sc.traj.vel_fn(t0),
         lidar_times=sc.lidar_times, sweeps=sc.sweeps,
         guess_idx=sc.lidar_guess_idx)
-    return sc, inputs
+    return sc, x
 
 
-def first_sweeps(x: SliceInputs, n: int) -> SliceInputs:
-    """The first ``n`` sweeps and the VIO events up to the last of them."""
+def first_events(x: DriveInputs, n: int) -> DriveInputs:
+    """The first ``n`` sweeps and the VIO frames up to the last of them."""
     nv = int(np.searchsorted(x.vio_times, x.lidar_times[n - 1] + 1e-9))
+    cut = lambda v: None if v is None else v[:nv]
     return x._replace(
         vio_times=x.vio_times[:nv],
-        vio=VIL.VioStream(*(f[:nv] for f in x.vio)),
+        imu_windows=tuple(w[:nv] for w in x.imu_windows),
+        images=cut(x.images), cam_points=cut(x.cam_points),
+        cam_point_valid=cut(x.cam_point_valid),
+        frames=None if x.frames is None else V.VioFrameInput(
+            *(f[:nv] for f in x.frames)),
         lidar_times=x.lidar_times[:n],
         sweeps=L.Sweep(*(f[:n] for f in x.sweeps)),
         guess_idx=x.guess_idx[:n])
 
 
-def to_device(x: SliceInputs, dev) -> SliceInputs:
+def to_device(x: DriveInputs, dev, dtype=torch.float32) -> DriveInputs:
     def mv(v):
-        return v.to(dev) if isinstance(v, torch.Tensor) else v
-    return SliceInputs(*(type(f)(*map(mv, f)) if isinstance(f, tuple)
-                         else mv(f) for f in x))
+        if isinstance(v, torch.Tensor):
+            return v.to(dev, dtype if v.is_floating_point() else v.dtype)
+        if isinstance(v, tuple):
+            return type(v)(*map(mv, v)) if hasattr(v, "_fields") \
+                else tuple(map(mv, v))
+        return v
+    return DriveInputs(*map(mv, x))
 
 
-def run_slice(cfg: VIL.VilConfig, x: SliceInputs):
-    """One call of the port's entry point, from fresh states."""
-    dt = torch.float32
+def _sync_of(dev):
+    return torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+
+class StageTimer:
+    """Seconds per stage, each call between two device synchronisations."""
+
+    def __init__(self, dev):
+        self.sync = _sync_of(dev)
+        self.seconds: dict[str, float] = {}
+
+    def __call__(self, name: str, fn, *args, **kw):
+        self.sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        self.sync()
+        self.seconds[name] = (self.seconds.get(name, 0.0)
+                              + time.perf_counter() - t0)
+        return out
+
+
+@contextlib.contextmanager
+def timed_run_vil_stages(timer: StageTimer):
+    """Time the four stages inside ``run_vil`` by wrapping the functions it
+    calls (the VIO run, LiDAR odometry, the gate and the fusion engine);
+    what is left of its wall is the priors and the timeline merge."""
+    stages = ((VIL.V, "run", "vio"), (VIL.L.odometry, "run", "lidar"),
+              (VIL.DG, "logdet_gate", "gate"), (VIL.E, "run", "fusion"))
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in stages]
+    for (mod, attr, fn), (_, _, name) in zip(saved, stages):
+        setattr(mod, attr, functools.partial(timer, name, fn))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def run_path(cfg: VIL.VilConfig, fcfg: F.FrontendConfig, x: DriveInputs,
+             timer: StageTimer | None = None):
+    """The main path once, from fresh states: the image tracker (when the
+    inputs hold a camera stream) and then the port's ``run_vil``. Returns
+    (VIO frames, VilResult)."""
+    dev, dt = x.pose0.device, x.pose0.dtype
+    stage = timer or (lambda name, fn, *a, **k: fn(*a, **k))
+    frames = x.frames
+    if frames is None:
+        pyrs = stage("pyramids", F.pyramids_batch, fcfg, x.images)
+        cand = stage("detect+depth", F.candidates_batch, fcfg, x.images,
+                     x.cam_points, x.cam_point_valid)
+        frames, _ = stage("track", F.track_frames, fcfg, pyrs, *cand,
+                          x.imu_windows, cfg.vio.num_landmarks)
+    zeros6 = torch.zeros(6, dtype=dt, device=dev)
+    vs = V.init(cfg.vio, x.pose0, x.vel0, zeros6)
     ls = L.odometry.init(cfg.lidar, dt, pose0=x.pose0)
-    es = fu.init(cfg.fusion, x.pose0, x.vel0,
-                 torch.zeros(6, dtype=dt, device=x.pose0.device),
-                 torch.zeros((), dtype=dt, device=x.pose0.device) - 1e-3)
-    _, res = VIL.run_vil(
-        cfg, x.imu_times, x.imu_accel, x.imu_gyro,
-        x.vio_times, x.vio, x.pose0, x.lidar_times, x.sweeps, ls,
-        lidar_guess_from_vio_idx=x.guess_idx, engine_state=es)
-    return res
+    es = fu.init(cfg.fusion, x.pose0, x.vel0, zeros6,
+                 torch.zeros((), dtype=dt, device=dev) - 1e-3)
+    ctx = (timed_run_vil_stages(timer) if timer is not None
+           else contextlib.nullcontext())
+    with ctx:
+        _, res = VIL.run_vil(
+            cfg, x.imu_times, x.imu_accel, x.imu_gyro,
+            x.vio_times, frames, vs, x.lidar_times, x.sweeps, ls,
+            lidar_guess_from_vio_idx=x.guess_idx, engine_state=es)
+    return frames, res
 
 
 def ate(poses: np.ndarray, gt: np.ndarray) -> float:
@@ -304,87 +404,149 @@ def ate(poses: np.ndarray, gt: np.ndarray) -> float:
                                         axis=-1))))
 
 
-def drive_slice(cfg: VIL.VilConfig, sc, x: SliceInputs) -> dict:
-    """Phase 4 on the inputs' device; returns the run's numbers and the
-    result of the counted run."""
-    dev = x.pose0.device
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+def check_drive(sc, x: DriveInputs, frames, res, launches: list) -> dict:
+    """The repo's own checks on one drive: k-NN launches 4 per sweep,
+    tracker live share, finite fused poses of the right shape, the gate
+    keeps sweeps, and VIO, LiDAR and fused ATE within their bounds."""
     T_l, T_v = len(x.lidar_times), len(x.vio_times)
-    walls, launches, res = [], [], None
-    for _ in range(2):                          # cold, then warm
+    fused = res.fused.poses.cpu().numpy()
+    keep = res.gate.keep.cpu().numpy()
+    gt_fused = torch.func.vmap(sc.traj.pose_fn)(res.timeline.times)
+    out = {
+        "sweeps": T_l, "vio_frames": T_v, "events": T_l + T_v,
+        "launches": launches,
+        "live_share": float(frames.obs_valid[2:].mean()),
+        "vio_ate_m": ate(res.vio_out.pose.cpu().numpy(),
+                         sc.gt_vio_poses[:T_v]),
+        "lidar_ate_m": ate(res.lidar_out.pose.cpu().numpy(),
+                           sc.gt_lidar_poses[:T_l]),
+        "fused_ate_m": ate(fused, gt_fused.cpu().numpy()),
+        "keep_share": float(keep.mean()),
+        "healthy_share": float(res.fused.healthy.cpu().numpy().mean())}
+    check(launches == [4 * T_l] * len(launches),
+          f"k-NN kernel launches {launches}, want 4 per sweep ({4 * T_l})")
+    check(fused.shape == (T_l + T_v, 7), f"fused poses shape {fused.shape}")
+    check(bool(np.isfinite(fused).all()), "non-finite fused pose")
+    check(out["live_share"] > 0.5,
+          f"tracker live share {out['live_share']} <= 0.5")
+    check(out["keep_share"] > 0.0, "the gate kept no sweep")
+    check(out["vio_ate_m"] < 0.5, f"VIO ATE {out['vio_ate_m']} m")
+    check(out["lidar_ate_m"] < 0.5, f"LiDAR ATE {out['lidar_ate_m']} m")
+    check(out["fused_ate_m"] < 1.0, f"fused ATE {out['fused_ate_m']} m")
+    return out
+
+
+def drive_full_path(cfg, fcfg, sc, x: DriveInputs) -> dict:
+    """Phase 4: the image-driven path on the card, cold then warm; the warm
+    run is split by stage with synchronised timers."""
+    sync = _sync_of(x.pose0.device)
+    walls, launches, timer = [], [], None
+    torch.cuda.reset_peak_memory_stats()
+    for run in ("cold", "warm"):
+        timer = StageTimer(x.pose0.device) if run == "warm" else None
         sync()
         K.KERNEL_LAUNCHES = 0
         t0 = time.perf_counter()
-        res = run_slice(cfg, x)
+        frames, res = run_path(cfg, fcfg, x, timer)
         sync()
         walls.append(time.perf_counter() - t0)
         launches.append(K.KERNEL_LAUNCHES)
-    fused = res.fused.poses.cpu().numpy()
-    check(fused.shape == (T_l + T_v, 7), f"fused poses shape {fused.shape}")
-    check(bool(np.isfinite(fused).all()), "non-finite fused pose")
-    keep = res.gate.keep.cpu().numpy()
-    lidar_ate = ate(res.lidar_out.pose.cpu().numpy(), sc.gt_lidar_poses)
-    gt_fused = torch.func.vmap(sc.traj.pose_fn)(res.timeline.times)
-    fused_ate = ate(fused, gt_fused.cpu().numpy())
-    out = {"sweeps": T_l, "vio_events": T_v, "events": T_l + T_v,
-           "launches": launches, "keep_share": float(keep.mean()),
-           "lidar_ate_m": lidar_ate, "fused_ate_m": fused_ate,
-           "cold_s": walls[0], "warm_s": walls[1],
-           "events_per_s": (T_l + T_v) / walls[1],
-           "healthy_share": float(res.fused.healthy.cpu().numpy().mean())}
+    out = check_drive(sc, x, frames, res, launches)
+    stages = dict(timer.seconds)
+    stages["other"] = walls[1] - sum(stages.values())
+    out.update(cold_s=walls[0], warm_s=walls[1],
+               events_per_s=out["events"] / walls[1],
+               warm_stage_s=stages,
+               peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print("  " + json.dumps(out), flush=True)
-    check(float(keep.mean()) > 0.0, "the gate kept no sweep")
-    check(lidar_ate < 0.5, f"LiDAR ATE {lidar_ate} m")
-    check(fused_ate < 1.0, f"fused ATE {fused_ate} m")
-    return {"numbers": out, "result": res}
+    return {"numbers": out, "frames": frames, "result": res}
 
 
-def cross_check(cfg: VIL.VilConfig, x: SliceInputs, res_dev,
-                n: int = CROSS_SWEEPS) -> dict:
-    """Phase 5: rerun the first ``n`` sweeps and their events on the CPU
-    and compare with the device run, which is causal in both stages, so
-    its first ``n`` sweeps and events are the same computation.
-
-    Tolerances: the two runs take identical inputs, but f32 sums run in
-    another order and the CPU's and the card's sin/cos/sqrt differ in the
-    last bit. Over a chain of sweeps that flips a few line/plane gates or a
-    hashed-map slot winner, each of which moves a pose by millimetres
-    (the same effect bounds the port-vs-JAX f32 test at 1e-2 m). Each f32
-    run is that far from a float64 run of the same code too: on this drive
-    both sit up to ~8 mm and ~6% (Hessian) from it, while either device
-    repeats itself bit for bit. So: poses 2e-2 m and 2e-3 in the
-    quaternion, Hessians 1e-1 relative (Frobenius), n_corr 2% + 8, fused
-    poses 2e-2 m."""
-    xc = to_device(first_sweeps(x, n), torch.device("cpu"))
+def drive_synthetic_tracks(cfg, fcfg, dev) -> dict:
+    """Phase 5: the path on the scenario's synthetic feature tracks (the
+    JAX package's default VIO input) over a shorter drive, once."""
+    sc, x = make_inputs(cfg, dev, SHORT_DURATION, from_images=False)
+    sync = _sync_of(dev)
+    sync()
     K.KERNEL_LAUNCHES = 0
-    res_c = run_slice(cfg, xc)
-    check(K.KERNEL_LAUNCHES == 0, "the CPU rerun launched the CUDA kernel")
-    ld, lc = res_dev.lidar_out, res_c.lidar_out
-    nv = len(xc.vio_times)
-    pd = ld.pose[:n].cpu().numpy()
-    pc = lc.pose.numpy()
-    Hd = ld.hessian[:n].cpu().double().numpy()
-    Hc = lc.hessian.double().numpy()
-    nd, nc = ld.n_corr[:n].cpu().numpy(), lc.n_corr.numpy()
-    fd = res_dev.fused.poses[:n + nv].cpu().numpy()
-    fc = res_c.fused.poses.numpy()
-    h_rel = (np.linalg.norm(Hd - Hc, axis=(1, 2))
-             / np.maximum(np.linalg.norm(Hc, axis=(1, 2)), 1e-9))
-    out = {"sweeps": n, "events": n + nv,
-           "lidar_trans_err_m": float(np.abs(pd[:, 4:] - pc[:, 4:]).max()),
-           "lidar_quat_err": float(np.abs(pd[:, :4] - pc[:, :4]).max()),
-           "hessian_rel_err": float(h_rel.max()),
-           "n_corr_err": float(np.abs(nd - nc).max()),
-           "fused_trans_err_m": float(np.abs(fd[:, 4:] - fc[:, 4:]).max()),
-           "fused_quat_err": float(np.abs(fd[:, :4] - fc[:, :4]).max())}
+    t0 = time.perf_counter()
+    frames, res = run_path(cfg, fcfg, x)
+    sync()
+    wall = time.perf_counter() - t0
+    out = check_drive(sc, x, frames, res, [K.KERNEL_LAUNCHES])
+    out.update(wall_s=wall, events_per_s=out["events"] / wall)
     print("  " + json.dumps(out), flush=True)
-    check(out["lidar_trans_err_m"] <= 2e-2, "LiDAR positions differ")
-    check(out["lidar_quat_err"] <= 2e-3, "LiDAR rotations differ")
-    check(out["hessian_rel_err"] <= 1e-1, "Hessians differ")
-    check(bool((np.abs(nd - nc) <= 0.02 * np.abs(nc) + 8).all()),
-          "n_corr differs")
-    check(out["fused_trans_err_m"] <= 2e-2, "fused positions differ")
-    check(out["fused_quat_err"] <= 2e-3, "fused rotations differ")
+    return out
+
+
+def compare_runs(a, b, n: int) -> dict:
+    """Largest differences between two runs (frames, VilResult) of the
+    same first ``n`` sweeps: ``a`` may hold more events than ``b``."""
+    (fa, ra), (fb, rb) = a, b
+    nv = fb.obs_valid.shape[0]
+    np_ = lambda t: t.detach().cpu().double().numpy()
+    va, vb = np_(ra.vio_out.pose[:nv]), np_(rb.vio_out.pose)
+    la, lb = ra.lidar_out, rb.lidar_out
+    pa, pb = np_(la.pose[:n]), np_(lb.pose)
+    Ha, Hb = np_(la.hessian[:n]), np_(lb.hessian)
+    na, nb = np_(la.n_corr[:n]), np_(lb.n_corr)
+    Fa, Fb = np_(ra.fused.poses[:n + nv]), np_(rb.fused.poses)
+    h_rel = (np.linalg.norm(Ha - Hb, axis=(1, 2))
+             / np.maximum(np.linalg.norm(Hb, axis=(1, 2)), 1e-9))
+    return {
+        "track_valid_mismatch": float(
+            (np_(fa.obs_valid[:nv]) != np_(fb.obs_valid)).mean()),
+        "vio_trans_err_m": float(np.abs(va[:, 4:] - vb[:, 4:]).max()),
+        "vio_quat_err": float(np.abs(va[:, :4] - vb[:, :4]).max()),
+        "lidar_trans_err_m": float(np.abs(pa[:, 4:] - pb[:, 4:]).max()),
+        "lidar_quat_err": float(np.abs(pa[:, :4] - pb[:, :4]).max()),
+        "hessian_rel_err": float(h_rel.max()),
+        "n_corr_err": float(np.abs(na - nb).max()),
+        "n_corr_rel_err": float((np.abs(na - nb)
+                                 / np.maximum(np.abs(nb), 1.0)).max()),
+        "fused_trans_err_m": float(np.abs(Fa[:, 4:] - Fb[:, 4:]).max()),
+        "fused_quat_err": float(np.abs(Fa[:, :4] - Fb[:, :4]).max())}
+
+
+# Phase 6 tolerances. The CPU rerun takes the card's own images, sweeps and
+# IMU, so what differs is arithmetic: f32 sums in another order (cuBLAS vs
+# the CPU's BLAS in KLT's window products, the EKF and the ICP normal
+# equations), and the card's and the CPU's sin/cos/sqrt differ in the last
+# bit. Each device repeats itself bit for bit. So the bound is the f32 band:
+# how far each f32 run lies from a float64 CPU run of the same code and
+# inputs, the two f32 runs possibly on opposite sides of it. Measured on
+# the first 10 sweeps and 20 frames of this drive (H100 80GB HBM3, 700 W):
+# card / CPU f32 against f64 differ by 0 / 0 tracker validities, VIO
+# 3.3e-6 / 2.6e-6 m, LiDAR 2.5 / 7.1 mm and 1.3e-4 / 4.9e-4 in the
+# quaternion, Hessians 3.6% / 9.6% (Frobenius), n_corr 1.5% / 2.6%, fused
+# 0.11 / 0.23 mm. The tolerances cover the sum of the two bands with
+# room: a flipped line/plane gate or KLT check moves the chain further.
+# The VIO's is tight (a flipped track would show), the fused poses' follows
+# the LiDAR's, which drives them.
+CROSS_TOL = {
+    "track_valid_mismatch": 0.02,
+    "vio_trans_err_m": 1e-3, "vio_quat_err": 1e-4,
+    "lidar_trans_err_m": 2e-2, "lidar_quat_err": 2e-3,
+    "hessian_rel_err": 0.2, "n_corr_rel_err": 0.06,
+    "fused_trans_err_m": 2e-2, "fused_quat_err": 2e-3,
+}
+
+
+def cross_check(cfg, fcfg, x: DriveInputs, dev_run,
+                n: int = CROSS_SWEEPS) -> dict:
+    """Phase 6: rerun the first ``n`` sweeps and their frames on the CPU
+    from the card's images and compare with the card's run; both the
+    tracker and ``run_vil`` are causal, so those events are the same
+    computation."""
+    xc = to_device(first_events(x, n), torch.device("cpu"))
+    K.KERNEL_LAUNCHES = 0
+    cpu_run = run_path(cfg, fcfg, xc)
+    check(K.KERNEL_LAUNCHES == 0, "the CPU rerun launched the CUDA kernel")
+    out = compare_runs(dev_run, cpu_run, n)
+    out.update(sweeps=n, frames=len(xc.vio_times))
+    print("  " + json.dumps(out), flush=True)
+    for key, tol in CROSS_TOL.items():
+        check(out[key] <= tol, f"cross-check {key} {out[key]} > {tol}")
     return out
 
 
@@ -414,27 +576,28 @@ def main() -> int:
     print("[kernel vs plain] k-NN, k=5", flush=True)
     kv = kernel_vs_plain(dev)
 
-    # Phase 4: the slice on the card.
-    print(f"[slice] town drive {DURATION} s at the bench operating point",
-          flush=True)
-    cfg = main_path_config()
-    sc, x = make_inputs(dev, DURATION)
-    drive = drive_slice(cfg, sc, x)
-    n = drive["numbers"]
-    check(n["launches"] == [4 * n["sweeps"]] * 2,
-          f"k-NN kernel launches {n['launches']}, want 4 per sweep "
-          f"({4 * n['sweeps']})")
+    # Phase 4: the image-driven full path on the card.
+    cfg, fcfg = main_path_config()
+    print(f"[full path] town drive {DURATION} s, {CAM_W}x{CAM_H} camera, "
+          f"{N_SLOTS} slots: tracker -> run_vil", flush=True)
+    sc, x = make_inputs(cfg, dev, DURATION, from_images=True)
+    full = drive_full_path(cfg, fcfg, sc, x)
 
-    # Phase 5: CPU cross-check.
+    # Phase 5: synthetic feature tracks, shorter.
+    print(f"[synthetic tracks] town drive {SHORT_DURATION} s -> run_vil",
+          flush=True)
+    drive_synthetic_tracks(cfg, fcfg, dev)
+
+    # Phase 6: CPU cross-check of the image-driven run.
     print(f"[cross-check] first {CROSS_SWEEPS} sweeps on the CPU", flush=True)
-    cross_check(cfg, x, drive["result"])
+    cross_check(cfg, fcfg, x, (full["frames"], full["result"]))
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "knn5_f32", "route": "cuda",
         "source": "vil_sensor_fusion_tpu_torch/csrc/knn.cu",
         "replaces": "vil_sensor_fusion_tpu/ops/knn.py:114",
-        "launches": n["launches"][1],
+        "launches": full["numbers"]["launches"][1],
         "max_abs_err": kv["max_abs_err"],
         "ms": kv["ms"], "plain_ms": kv["plain_ms"],
         "ms_of": "one sweep: sum of the 4 main-path shapes",

@@ -7,7 +7,8 @@ The counterpart type is found by module path
 (``vil_sensor_fusion_tpu.X.Y.Name`` → ``vil_sensor_fusion_tpu_torch.X.Y.Name``)
 and fields are matched by name: a field the port's type lacks is dropped,
 one it adds keeps its default. Nothing here imports ``jax``: array leaves
-are read through the ``__array__`` protocol.
+are read through the ``__array__`` protocol. Python and numpy scalars are
+static config values and come out as Python scalars.
 
 :func:`to_numpy` goes the other way: the same structure, numpy leaves.
 """
@@ -46,12 +47,15 @@ def _port_type(cls: type) -> type:
 
 
 def _leaf_to_torch(x: Any, device, dtype) -> Any:
+    if isinstance(x, np.generic):
+        # A numpy scalar is a config value (e.g. ``pose_ic`` given as
+        # ``tuple(np.asarray(...))``): it becomes a Python scalar.
+        return x.item()
     if isinstance(x, (bool, int, float, str)) or x is None:
         return x                               # static config value
     if isinstance(x, torch.Tensor):
         t = x.to(device)
-    elif isinstance(x, np.ndarray) or isinstance(x, np.generic) \
-            or hasattr(x, "__array__"):
+    elif isinstance(x, np.ndarray) or hasattr(x, "__array__"):
         t = torch.as_tensor(np.array(x), device=device)
     else:
         return x

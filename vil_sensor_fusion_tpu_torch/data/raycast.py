@@ -1,7 +1,8 @@
 """Analytic LiDAR simulation: raycast ground plane + box worlds.
 
-Port of the LiDAR half of ``vil_sensor_fusion_tpu/data/raycast.py``
-(``World``, ``town_world``, ``cast``, ``raycast``, ``sweep_series``). Worlds
+Port of ``vil_sensor_fusion_tpu/data/raycast.py``: ``World``,
+``town_world``, ``cast``, the LiDAR sweeps (``raycast``, ``sweep_series``)
+and the camera renderer (``render_camera``, ``render_camera_series``). Worlds
 are drawn from a ``numpy.random.Generator``: JAX's PRNG stream cannot be
 reproduced here, so a port world equals a JAX world only when its arrays
 are handed over (``convert.to_torch``), not when built from the same seed.
@@ -100,6 +101,65 @@ def cast(
     t = torch.where(use_box, t_box, t_plane)
     n = torch.where(use_box[..., None], n_box, n_plane)
     return t, n
+
+
+def _procedural_intensity(p_world: torch.Tensor, normal: torch.Tensor,
+                          dtype) -> torch.Tensor:
+    """World-anchored multi-scale texture + diffuse shading: dense,
+    geometrically consistent image gradients for corner detection and KLT
+    (the role Carla's textured meshes play for ROVIO)."""
+    x, y, z = p_world[..., 0], p_world[..., 1], p_world[..., 2]
+    tex = (torch.sin(2.1 * x + 0.7) * torch.sin(1.7 * y + 1.3)
+           + 0.6 * torch.sin(5.3 * x + 2.9 * z + 0.5)
+           * torch.sin(4.1 * y - 1.9 * z)
+           + 0.35 * torch.sin(11.7 * y + 7.1 * z + 2.0)
+           * torch.sin(9.3 * x - 6.7 * z))
+    sun = torch.tensor([0.40824829, 0.40824829, -0.81649658], dtype=dtype,
+                       device=p_world.device)
+    light = torch.clamp(-torch.einsum("...k,k->...", normal, sun), 0.0, 1.0)
+    return torch.clamp(0.45 + 0.25 * light + 0.13 * tex, 0.0, 1.0)
+
+
+def render_camera(
+    world: World,
+    pose_wc: torch.Tensor,      # (7,) world_T_camera (x right, y down, z fwd)
+    cam,                        # frontends.vio.camera.Camera
+    max_range: float = 200.0,
+    sky_level: float = 0.85,
+) -> torch.Tensor:
+    """Render a grayscale image (H, W) in [0, 255] from a camera pose:
+    raycast every pixel against the world and shade it with the
+    world-anchored procedural texture (the stand-in for the reference's
+    800×600 Carla RGB camera)."""
+    dtype, device = pose_wc.dtype, pose_wc.device
+    H, W = cam.height, cam.width
+    u = (torch.arange(W, dtype=dtype, device=device) + 0.5 - cam.cx) / cam.fx
+    v = (torch.arange(H, dtype=dtype, device=device) + 0.5 - cam.cy) / cam.fy
+    dirs_c = torch.stack([
+        u[None, :].expand(H, W),
+        v[:, None].expand(H, W),
+        torch.ones((H, W), dtype=dtype, device=device),
+    ], dim=-1)
+    dirs_c = dirs_c / torch.linalg.vector_norm(dirs_c, dim=-1, keepdim=True)
+    q = lie.pose_quat(pose_wc)
+    o = lie.pose_trans(pose_wc)
+    dirs_w = lie.quat_rotate(q[None, None, :], dirs_c)
+
+    t, n = cast(world, o, dirs_w, min_range=0.05)
+    hit = t < max_range
+    t_safe = torch.where(hit, t, 0.0)
+    p_hit = o + t_safe[..., None] * dirs_w
+    shade = _procedural_intensity(p_hit, n, dtype)
+    img = torch.where(hit, shade, sky_level)
+    return img * 255.0
+
+
+def render_camera_series(world: World, poses_wc: torch.Tensor, cam,
+                         **kw) -> torch.Tensor:
+    """(T, 7) camera poses → (T, H, W) frames, one frame at a time: a
+    batched render would hold (T, H, W, boxes, 3) ray-slab intermediates."""
+    return torch.stack([render_camera(world, p, cam, **kw)
+                        for p in poses_wc])
 
 
 def _ray_dirs(dtype, device=None) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Odometry front-ends. Only the LiDAR front-end is ported so far."""
+"""Odometry front-ends: LiDAR (LOAM-equivalent) and VIO (ROVIO-equivalent)."""
 
 from . import lidar
+from . import vio
 
-__all__ = ["lidar"]
+__all__ = ["lidar", "vio"]

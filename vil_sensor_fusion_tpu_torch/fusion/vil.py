@@ -1,15 +1,18 @@
-"""The VIL pipeline's LiDAR → gate → fusion stages (the reference's LOAM +
-degenerate_odometry_filter + gtsam_fusion_node, fusion.launch):
+"""Full VIL pipeline: VIO (20 Hz) + LiDAR odometry (10 Hz) + degeneracy
+gate + factor-graph fusion (the reference's fusion.launch: ROVIO + LOAM +
+degenerate_odometry_filter + gtsam_fusion_node), stage for stage:
 
-    VIO stream (given) ─ pose+cov @20Hz ─────────────────┐
-    LiDAR ─→ lidar odometry (ICP) ─ pose+cov+HESSIAN @10Hz
-                  └→ log-det gate (keep/drop) ───────────┤
-    IMU ─────────────────────────────────────────────────┴→ fusion engine
+    camera+IMU ─→ VIO (ekf)            ─ pose+cov @20Hz ──┐
+    LiDAR      ─→ lidar odometry (ICP) ─ pose+cov+HESSIAN @10Hz
+                      │                                   │
+                      └→ log-det gate (keep/drop) ────────┤
+    IMU ──────────────────────────────────────────────────┴→ fusion engine
+                                                             → fused pose
 
-Port of stages 2-4 of ``vil_sensor_fusion_tpu/fusion/vil.py:run_vil``. The
-VIO front-end is not ported yet, so its output stream comes in as a
-:class:`VioStream` (the fields of the JAX ``VioOutput`` the later stages
-read) together with the VIO initial pose.
+Port of ``vil_sensor_fusion_tpu/fusion/vil.py:run_vil`` in its geometric
+VIO mode. Not ported yet: the direct photometric VIO
+(``VioConfig.use_photometric``), the model-parallel ``mesh``, and the bag
+entry points (``run_vil_from_bag``, ``build_vio_frames_from_bag``).
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ from .. import convert
 from ..core import lie
 from ..degeneracy import gate as DG
 from ..frontends import lidar as L
+from ..frontends import vio as V
 from . import engine as E
 
 
 class VilConfig(NamedTuple):
+    vio: V.VioConfig = V.VioConfig()
     lidar: L.LidarOdomConfig = L.LidarOdomConfig()
     gate: DG.GateConfig = DG.GateConfig()
     # Per-sensor noise mirrors the reference's calibration (fusion_params
@@ -46,46 +51,51 @@ class VilConfig(NamedTuple):
     )
 
 
-class VioStream(NamedTuple):
-    """The VIO odometry stream, stacked over its T_v frames."""
-
-    pose: torch.Tensor        # (T_v, 7)
-    cov: torch.Tensor         # (T_v, 6, 6)
-    twist_cov: torch.Tensor   # (T_v, 6, 6)
-
-
 class VilResult(NamedTuple):
     fused: E.FusedOutput
     timeline: E.Timeline
-    vio_out: VioStream
+    vio_out: V.VioOutput          # stacked (T_v, ·)
     lidar_out: L.LidarOdomResult  # stacked (T_l, ·)
     gate: DG.GateResult           # over lidar sweeps
 
 
 def run_vil(
     cfg: VilConfig,
+    # IMU stream (for preintegration in the fusion back-end):
     imu_times: torch.Tensor, imu_accel: torch.Tensor, imu_gyro: torch.Tensor,
-    vio_times: np.ndarray, vio_out: VioStream, vio_pose0: torch.Tensor,
+    # VIO inputs:
+    vio_times: np.ndarray, vio_frames: V.VioFrameInput,
+    vio_state: V.VioState,
+    # LiDAR inputs:
     lidar_times: np.ndarray, sweeps: L.Sweep, lidar_state: L.LidarOdomState,
     lidar_pose_guesses: torch.Tensor | None = None,
     lidar_guess_from_vio_idx: np.ndarray | None = None,
+    # Fusion init:
     engine_state: E.EngineState = None,
 ) -> tuple[E.EngineState, VilResult]:
-    """Run LiDAR odometry, the degeneracy gate and the fusion engine over
-    one sequence, on the device the inputs live on.
+    """Run the full system over one sequence, on the device the inputs
+    live on. The front-ends run first (they are causal); their odometry
+    streams then drive the fusion engine.
 
-    LiDAR priors come from ``lidar_pose_guesses`` or from the VIO poses at
-    the sweep times (``lidar_guess_from_vio_idx``); in ``guess_is_delta``
-    mode they are the VIO's relative motion between consecutive sweeps,
-    with sweep 0 relative to ``vio_pose0``."""
+    LiDAR registration priors come either from ``lidar_pose_guesses`` or
+    from the VIO poses at the sweeps' times (``lidar_guess_from_vio_idx``);
+    in ``guess_is_delta`` mode they are the VIO's relative motion between
+    consecutive sweeps, with sweep 0 relative to the VIO initial pose."""
     _precision.require_full_f32()
+    # --- Stage 1: VIO ------------------------------------------------------
+    if cfg.vio.use_photometric:
+        raise NotImplementedError(
+            "the direct photometric VIO (VioConfig.use_photometric) is not "
+            "ported yet: ROADMAP.md Queue 1 item 2")
+    _, vio_out = V.run(cfg.vio, vio_state, vio_frames)
+
     # --- Stage 2: LiDAR odometry -------------------------------------------
     if lidar_guess_from_vio_idx is not None:
         sel_idx = torch.as_tensor(np.asarray(lidar_guess_from_vio_idx),
                                   device=vio_out.pose.device)
         vio_sel = vio_out.pose[sel_idx]
         if cfg.lidar.guess_is_delta:
-            prev = torch.cat([vio_pose0[None], vio_sel[:-1]], dim=0)
+            prev = torch.cat([vio_state.pose[None], vio_sel[:-1]], dim=0)
             lidar_pose_guesses = lie.pose_between(prev, vio_sel)
         else:
             lidar_pose_guesses = vio_sel
