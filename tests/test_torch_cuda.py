@@ -17,8 +17,15 @@ from vil_sensor_fusion_tpu_torch.ops import knn as K
 
 pytestmark = pytest.mark.cuda
 
+# Q one past a query tile and M one past a split boundary (M − 1 targets
+# fill the plan's splits exactly): (193, 1937) and (385, 4001), checked on
+# the CPU by tests/test_torch_knn_plan.py.
+ONE_PAST = [(193, 1937), (385, 4001)]
 SHAPES = [(192, 1920), (384, 3984), (1920, 2048), (3984, 4096), (77, 4097),
-          (1, 6)]
+          (1, 6), (3984, 49152), (64, 1), (1, 4096), *ONE_PAST]
+# Queries on targets at 100 m (distances cancel to a few ulps either side
+# of 0), and on targets copied 2,048 places on into another split.
+SEL = [0, 3, 64, 500, 1023, 1024, 1500, 2047]
 
 
 @pytest.fixture
@@ -29,17 +36,25 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _problem(Q, M, dev, seed=0):
+def _problem(Q, M, dev, seed=0, kind="random"):
     g = torch.Generator().manual_seed(seed)
     q = torch.rand(Q, 3, generator=g) * 40 + 100
     t = torch.rand(M, 3, generator=g) * 40 + 100
     m = (torch.rand(M, generator=g) > 0.3).float()
+    if kind in ("on_target", "split_tie"):
+        m = torch.ones(M)
+        if kind == "split_tie":
+            t[2048 + torch.tensor(SEL)] = t[SEL]
+        q = t[SEL]
     return q.to(dev), t.to(dev), m.to(dev)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_knn_cuda_matches_plain(dev, shape):
-    q, t, m = _problem(*shape, dev)
+@pytest.mark.parametrize("case", [("random", s) for s in SHAPES]
+                         + [("on_target", (8, 2048)),
+                            ("split_tie", (8, 4096))])
+def test_knn_cuda_matches_plain(dev, case):
+    kind, shape = case
+    q, t, m = _problem(*shape, dev, kind=kind)
     i_k, d_k = K.knn_cuda(q, t, m)
     torch.cuda.synchronize()
     i_p, d_p = K.knn_torch(q, t, m, k=6)
@@ -47,13 +62,21 @@ def test_knn_cuda_matches_plain(dev, shape):
         (q * q).sum(1).max() + (t * t).sum(1).max())
     fin = torch.isfinite(d_p[:, :5])
     assert torch.equal(torch.isfinite(d_k), fin)
-    assert float((d_k - d_p[:, :5])[fin].abs().max()) <= tol
+    assert not fin.any() or float(
+        (d_k - d_p[:, :5])[fin].abs().max()) <= tol
     assert bool(((i_k >= 0) & (i_k < shape[1])).all())
     gaps = torch.diff(d_p, dim=1)
     prev = torch.cat([torch.full_like(gaps[:, :1], torch.inf),
                       gaps[:, :4]], 1)
     sep = fin & (prev > tol) & (gaps > tol)
     assert torch.equal(i_k[sep], i_p[:, :5][sep])
+    tie = (d_k[:, 1:] == d_k[:, :-1]) & fin[:, 1:]
+    assert bool((i_k[:, 1:] > i_k[:, :-1])[tie].all())
+    if kind == "on_target":
+        assert i_k[:, 0].tolist() == SEL
+    if kind == "split_tie":
+        assert K._plan(*shape).split_len <= 2048
+        assert i_k[:, :2].tolist() == [[i, i + 2048] for i in SEL]
 
 
 def test_knn_ties_and_sparse_rows(dev):

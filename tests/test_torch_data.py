@@ -60,8 +60,8 @@ def test_town_world_is_seeded_and_clears_the_street():
     """Drawn from numpy (JAX's PRNG cannot be reproduced), so only the
     structure matches the JAX world: one ground plane, n boxes, none of
     them straddling the street |y| < 8 m at its centre line."""
-    a = TR.town_world(n_boxes=28, seed=5, dtype=torch.float64)
-    b = TR.town_world(n_boxes=28, seed=5, dtype=torch.float64)
+    a, b = (TR.town_world(n_boxes=28, seed=5, dtype=torch.float64,
+                          device="cpu") for _ in range(2))
     j = JR.town_world(n_boxes=28, seed=5, dtype=DT)
     for f in a._fields:
         assert torch.equal(getattr(a, f), getattr(b, f))

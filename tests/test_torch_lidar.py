@@ -93,7 +93,7 @@ def test_insert_hashed_matches_jax_as_slot_sets(world, offset):
     offset drives the int32 hash products through wrap-around."""
     cfg = JV.VoxelMapConfig(capacity=4096, leaf=0.4, keep_radius=150.0)
     mj = JV.empty(cfg, DT)
-    mt = TV.empty(_t(cfg), torch.float32)
+    mt = TV.empty(_t(cfg), torch.float32, device="cpu")
     for x in (0.0, 0.8):
         p = _pose(x=x)
         fs = JF.extract(JR.raycast(world, p))
@@ -117,7 +117,8 @@ def test_voxel_hash_wraps_int32_and_floors_modulo():
     cfg = JV.VoxelMapConfig(capacity=1021, leaf=0.4, keep_radius=1e6)
     mj = JV.insert_hashed(JV.empty(cfg, DT), jnp.asarray(pts),
                           jnp.ones(4000, DT), jnp.zeros(3, DT), cfg)
-    mt = TV.insert_hashed(TV.empty(_t(cfg)), torch.from_numpy(pts),
+    mt = TV.insert_hashed(TV.empty(_t(cfg), device="cpu"),
+                          torch.from_numpy(pts),
                           torch.ones(4000), torch.zeros(3), _t(cfg))
     g = np.floor(pts / 0.4).astype(np.int64)
     h = ((g[:, 0] * 73856093) ^ (g[:, 1] * 19349663) ^ (g[:, 2] * 83492791))

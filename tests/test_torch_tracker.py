@@ -221,7 +221,7 @@ def test_frontend_step_and_build_frames_match_jax():
     cfg = _fcfg()
     _, _, imgs, pts, msk = _rendered(3)
     ts_j = JF.init_tracker(cfg, M, DT)
-    ts_t = TF.init_tracker(_t(cfg), M, torch.float64)
+    ts_t = TF.init_tracker(_t(cfg), M, torch.float64, device="cpu")
     for k in range(2):
         ts_j, oj = JF.frontend_step(cfg, ts_j, jnp.asarray(imgs[k]),
                                     jnp.asarray(pts), jnp.asarray(msk))
@@ -259,7 +259,7 @@ def test_image_driven_town_build_matches_jax(monkeypatch):
     world = _t(sj.world)
     monkeypatch.setattr(TSC.rc, "town_world", lambda **kw: world)
     st = TSC.build("town", duration=0.5, vio_cfg=_t(vio_cfg),
-                   dtype=torch.float64, vio_from_images=True,
+                   dtype=torch.float64, device="cpu", vio_from_images=True,
                    frontend_cfg=_t(fcfg))
     _close(st.images.numpy(), sj.images)
     _close(st.cam_points.numpy(), sj.cam_points)

@@ -260,7 +260,8 @@ def _synthetic_frames(T=10):
 def test_synthetic_frames_match_jax():
     cfg, traj, times, poses, imu_w, lms = _synthetic_frames()
     fj = JS.make_frames(cfg, poses, imu_w, lms, seed=2)
-    tw = TS.imu_windows_for_frames(TSC._town_traj(), times, imu_hz=200.0)
+    tw = TS.imu_windows_for_frames(TSC._town_traj(), times, imu_hz=200.0,
+                                   device="cpu")
     for a, b in zip(tw, imu_w):
         _close(a.numpy(), b)
     ft = TS.make_frames(_t(cfg), poses, tw, lms, seed=2)

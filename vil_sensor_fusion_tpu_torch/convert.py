@@ -21,6 +21,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from . import DEFAULT_DEVICE
+
 _JAX_PACKAGE = "vil_sensor_fusion_tpu"
 _PORT_PACKAGE = __name__.rsplit(".", 1)[0]
 
@@ -64,7 +66,8 @@ def _leaf_to_torch(x: Any, device, dtype) -> Any:
     return t
 
 
-def to_torch(tree: Any, device=None, dtype: torch.dtype | None = None) -> Any:
+def to_torch(tree: Any, device=DEFAULT_DEVICE,
+             dtype: torch.dtype | None = None) -> Any:
     """JAX-package tree (numpy/JAX leaves) → port tree (tensor leaves on
     ``device``); floating leaves are cast to ``dtype`` when given."""
     if _is_namedtuple(tree):

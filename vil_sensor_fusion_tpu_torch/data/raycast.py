@@ -15,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import DEFAULT_DEVICE
 from ..core import lie
 from ..frontends.lidar.rangeimage import (
     AZIMUTH, RINGS, Sweep, VLP16_ELEVATIONS_DEG)
@@ -30,7 +31,7 @@ class World(NamedTuple):
 
 
 def town_world(n_boxes: int = 24, seed: int = 0, extent: float = 60.0,
-               dtype=torch.float32, device=None) -> World:
+               dtype=torch.float32, device=DEFAULT_DEVICE) -> World:
     """Ground plane + random 'buildings' scattered around the origin,
     cleared of a central street (|y| ≥ 8 m) so trajectories don't collide."""
     rng = np.random.default_rng(seed)

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from .. import _tree
+from .. import DEFAULT_DEVICE, _tree
 from ..core import lie
 from ..frontends import vio as V
 from ..frontends.lidar.rangeimage import Sweep
@@ -88,7 +88,7 @@ def build(
     imu_hz: float = 200.0,
     vio_cfg: V.VioConfig | None = None,
     dtype=torch.float32,
-    device=None,
+    device=DEFAULT_DEVICE,
     seed: int = 0,
     imu_accel_noise: float = 0.0,
     imu_gyro_noise: float = 0.0,

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ... import DEFAULT_DEVICE
 from ...core import lie
 from ...ops import eig6 as E6
 from . import features as feat
@@ -75,9 +76,10 @@ def init(cfg: LidarOdomConfig, dtype=torch.float32,
          pose0: torch.Tensor | None = None, device=None) -> LidarOdomState:
     """``pose0``: initial world_T_sensor (required in guess_is_delta mode
     when the trajectory does not start at the origin). ``device`` defaults
-    to ``pose0``'s."""
-    if device is None and isinstance(pose0, torch.Tensor):
-        device = pose0.device
+    to ``pose0``'s, else the card."""
+    if device is None:
+        device = (pose0.device if isinstance(pose0, torch.Tensor)
+                  else DEFAULT_DEVICE)
     nc, ns = feat.pool_sizes(cfg.rings, cfg.azimuth)
 
     def z(*shape):

@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from ... import DEFAULT_DEVICE
+
 
 class VoxelMapConfig(NamedTuple):
     capacity: int = 32768
@@ -25,7 +27,8 @@ class VoxelMap(NamedTuple):
     mask: torch.Tensor     # (C,)
 
 
-def empty(cfg: VoxelMapConfig, dtype=torch.float32, device=None) -> VoxelMap:
+def empty(cfg: VoxelMapConfig, dtype=torch.float32,
+          device=DEFAULT_DEVICE) -> VoxelMap:
     return VoxelMap(
         points=torch.zeros((cfg.capacity, 3), dtype=dtype, device=device),
         mask=torch.zeros((cfg.capacity,), dtype=dtype, device=device),

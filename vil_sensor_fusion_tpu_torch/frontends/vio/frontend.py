@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from ... import DEFAULT_DEVICE
 from ...core import lie
 from . import camera as C
 from . import tracker as T
@@ -51,7 +52,7 @@ class TrackerState(NamedTuple):
 
 
 def init_tracker(cfg: FrontendConfig, num_slots: int, dtype=torch.float32,
-                 device=None) -> TrackerState:
+                 device=DEFAULT_DEVICE) -> TrackerState:
     h, w = cfg.cam.height, cfg.cam.width
     pyr = []
     for _ in range(cfg.pyramid_levels):
@@ -273,7 +274,7 @@ def build_frames(
 
 
 def forward_camera_extrinsics(dtype=torch.float32,
-                              device=None) -> torch.Tensor:
+                              device=DEFAULT_DEVICE) -> torch.Tensor:
     """imu_T_camera for a forward-looking camera on an x-forward/z-up IMU:
     camera z → IMU x, camera x → IMU −y, camera y → IMU −z."""
     R_ic = torch.tensor([[0.0, 0.0, 1.0],

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import DEFAULT_DEVICE
 from ...core import lie
 from . import camera as C
 from . import ekf as E
@@ -110,7 +111,7 @@ def make_frames(
 
 def imu_windows_for_frames(traj, frame_times: np.ndarray, imu_hz: float,
                            dtype=torch.float64, t_start: float = 0.0,
-                           device=None, **imu_kwargs):
+                           device=DEFAULT_DEVICE, **imu_kwargs):
     """Sample per-frame IMU windows from an analytic trajectory: window t
     covers (frame_{t-1}, frame_t] at the IMU rate; the clamped tail repeats
     the frame time with dt 0 (masked downstream). ``t_start`` is the time
