@@ -15,7 +15,7 @@ result line:
    time (back-to-back events) and host time (1,000 calls, no sync), the
    bound (8 FLOP per pair at 67 TFLOP/s f32), the plain version and the
    library expression (``torch.mm`` + ``torch.topk``, ties aside).
-4. The full path at the bench's rig: the 4 s ``town`` drive's 80 camera
+4. The full path at the bench's rig: the 2 s ``town`` drive's 40 camera
    frames (800×600, fov 100°) and camera-frame sweep points rendered on the
    card (untimed), then the image tracker (pyramids, detection with LiDAR
    depths, KLT tracking) and ``fusion.vil.run_vil`` (VIO → LiDAR odometry
@@ -28,11 +28,27 @@ result line:
    1 s drive, once, with the same checks.
 6. CPU cross-check: the first 10 sweeps and 20 frames of phase 4 again on
    the CPU from the card's images, compared with the card's run.
+7. Degeneracy experiments: the experiment harness (``eval.experiments``:
+   ``experiment_config`` → ``experiment_scenario`` → ``run_scenario``, what
+   its ``_run`` composes, with no cache) over the smoke grid's four kinds
+   (town, corridor, tunnel, arena; seed 0) at ``ExperimentSpec``'s
+   defaults (full motion-distorted VLP-16 sweeps, maps 32,768 / 65,536,
+   submaps 4,096 / 8,192, fresh correspondences every GN iteration, the 6×15
+   perturbation dists) over ``EXPERIMENT_DURATION`` s each. Per cell:
+   events, wall, k-NN launches, ATEs, keep share, median n_corr; then the
+   pooled AUC table, the calibrated thresholds and the raw-threshold
+   parity. Checks: finite fused poses and fused ATE < 1.0 m in every cell;
+   launches per cell equal to the per-sweep count of a CPU run; the kernel
+   against ``knn_torch`` on every k-NN call of the corridor cell; the
+   corridor's along-axis dist slope below a tenth of the cross-axis ones;
+   and a CPU rerun of the corridor's first 5 sweeps / 10 frames from the
+   card's inputs (identical NaN/±inf masks on every score series, poses and
+   scores within the f32 band).
 
 The last two lines are a JSON object describing the kernels (one sweep's
 sums in ms: ``ms`` the wrapper's call time, ``device_ms`` the kernel's
-own; per-shape µs under ``per_shape_us``; the card) and
-``{"ok": true, "device": {...}}``. Nothing here imports JAX.
+own; per-shape µs under ``per_shape_us``; launches per driven path; the
+card) and ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -54,6 +70,8 @@ from vil_sensor_fusion_tpu_torch import fusion as fu
 from vil_sensor_fusion_tpu_torch import graph as G
 from vil_sensor_fusion_tpu_torch.data import scenarios
 from vil_sensor_fusion_tpu_torch.degeneracy import gate as DG
+from vil_sensor_fusion_tpu_torch.eval import experiments as EX
+from vil_sensor_fusion_tpu_torch.eval import roc as R
 from vil_sensor_fusion_tpu_torch.frontends import lidar as L
 from vil_sensor_fusion_tpu_torch.frontends import vio as V
 from vil_sensor_fusion_tpu_torch.frontends.lidar import voxelmap as vm
@@ -64,7 +82,16 @@ from vil_sensor_fusion_tpu_torch.ops import knn as K
 # The four k-NN launches of one sweep (Q queries × M targets): line and
 # plane fits of the scan-to-scan stage, then of the scan-to-map stage.
 MAIN_PATH_SHAPES = ((192, 1920), (384, 3984), (1920, 2048), (3984, 4096))
-DURATION = 4.0          # s of the town drive: 40 sweeps, 80 VIO frames
+# The experiment harness's scan-to-map searches, against its default
+# submaps 4,096 / 8,192 (its scan-to-scan ones are the first two above).
+EXPERIMENT_SHAPES = ((1920, 4096), (3984, 8192))
+# Depths, cut so the script stays well inside its 600 s: the town drive
+# from 4 s to 2 s, the experiment cells from 1.5 s to 1.2 s (a
+# tunnel cell under 6 s labels at most one sweep either way; the corridor
+# and the arena give the pooled labels both classes).
+EXPERIMENT_DURATION = 1.2   # s per experiment cell: 12 sweeps, 24 frames
+CROSS_EXP_SWEEPS = 5        # corridor sweeps (and 10 frames) rerun on the CPU
+DURATION = 2.0          # s of the town drive: 20 sweeps, 40 VIO frames
 SHORT_DURATION = 1.0    # s of the synthetic-track drive: 10 sweeps
 CROSS_SWEEPS = 10       # sweeps (and their 20 frames) rerun on the CPU
 CAM_W, CAM_H = 800, 600  # the bench's camera (bench.py)
@@ -213,7 +240,7 @@ SEL_SPLIT_TIE = torch.tensor([0, 3, 64, 500, 1023, 1024, 1500, 2047])
 def knn_cases(g: torch.Generator) -> list[tuple[str, torch.Tensor,
                                                 torch.Tensor, torch.Tensor]]:
     cases = []
-    for Q, M in MAIN_PATH_SHAPES:
+    for Q, M in MAIN_PATH_SHAPES + EXPERIMENT_SHAPES:
         q, t = _map_cloud(Q, g), _map_cloud(M, g)
         m = (torch.rand(M, generator=g) > 0.05).float()
         cases.append((f"main_{Q}x{M}", q, t, m))
@@ -341,7 +368,7 @@ def time_knn_shapes(dev: torch.device) -> dict:
     the bound, the plain version and the library expression."""
     g = torch.Generator().manual_seed(2)
     out = {}
-    for Q, M in MAIN_PATH_SHAPES:
+    for Q, M in MAIN_PATH_SHAPES + EXPERIMENT_SHAPES:
         q, t = _map_cloud(Q, g).to(dev), _map_cloud(M, g).to(dev)
         m = (torch.rand(M, generator=g) > 0.05).float().to(dev)
         kern = lambda: K.knn_cuda(q, t, m)
@@ -363,17 +390,21 @@ def time_knn_shapes(dev: torch.device) -> dict:
     return out
 
 
-def kernels_line(card: str, launches: int, max_err: float,
-                 shapes: dict) -> str:
-    """The JSON ``kernels`` line: one sweep's sums of the four shapes in ms
-    (``ms`` the wrapper's call time, as in earlier lines; ``device_ms`` the
-    kernel's own), and the per-shape µs."""
-    total = lambda key: sum(r[key] for r in shapes.values()) * 1e-3
+def kernels_line(card: str, launches: dict, max_err: float,
+                 shapes: dict, experiment_sweep: dict) -> str:
+    """The JSON ``kernels`` line: one bench sweep's sums of its four shapes
+    in ms (``ms`` the wrapper's call time, as in earlier lines;
+    ``device_ms`` the kernel's own), the per-shape µs, the launches of each
+    driven path (``launches`` their sum), and the kernel's device ms per
+    experiment sweep from its calls per sweep by shape."""
+    bench = {f"{Q}x{M}": shapes[f"{Q}x{M}"] for Q, M in MAIN_PATH_SHAPES}
+    total = lambda key: sum(r[key] for r in bench.values()) * 1e-3
     return json.dumps({"kernels": [{
         "name": "knn5_f32", "route": "cuda",
         "source": "vil_sensor_fusion_tpu_torch/csrc/knn.cu",
         "replaces": "vil_sensor_fusion_tpu/ops/knn.py:114",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": max_err,
         "ms": total("call_us"), "plain_ms": total("plain_us"),
         "bound_ms": total("bound_us"), "bound_by": "operations",
         "library_ms": total("library_us"),
@@ -383,7 +414,14 @@ def kernels_line(card: str, launches: int, max_err: float,
                  "device_ms the kernel's own (a CUDA graph of 20 launches), "
                  "host_ms the host's per call",
         "device_ms": total("device_us"), "host_ms": total("host_us"),
-        "per_shape_us": shapes, "card": card}]})
+        "per_shape_us": shapes,
+        "experiment_sweep": {
+            "calls": experiment_sweep,
+            "device_ms": sum(n * shapes[k]["device_us"]
+                             for k, n in experiment_sweep.items()) * 1e-3,
+            "call_ms": sum(n * shapes[k]["call_us"]
+                           for k, n in experiment_sweep.items()) * 1e-3},
+        "card": card}]})
 
 
 # --------------------------------------------------------------------------
@@ -758,6 +796,223 @@ def cross_check(cfg, fcfg, x: DriveInputs, dev_run,
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 7: degeneracy experiments
+# --------------------------------------------------------------------------
+
+def scenario_head(sc, n: int, dev):
+    """The first ``n`` sweeps of a scenario and its VIO frames up to the
+    last of them, on ``dev`` (the IMU stream whole: the engine reads it up
+    to the last event)."""
+    nv = int(np.searchsorted(sc.vio_times, sc.lidar_times[n - 1] + 1e-9))
+    mv = lambda v: v.to(dev)
+    return sc._replace(
+        world=type(sc.world)(*map(mv, sc.world)),
+        imu_times=mv(sc.imu_times), imu_accel=mv(sc.imu_accel),
+        imu_gyro=mv(sc.imu_gyro), vio_times=sc.vio_times[:nv],
+        vio_frames=V.VioFrameInput(*(mv(f[:nv]) for f in sc.vio_frames)),
+        lidar_times=sc.lidar_times[:n],
+        sweeps=L.Sweep(*(mv(f[:n]) for f in sc.sweeps)),
+        lidar_guess_idx=sc.lidar_guess_idx[:n],
+        gt_vio_poses=sc.gt_vio_poses[:nv], gt_lidar_poses=sc.gt_lidar_poses[:n])
+
+
+def run_cell(spec, dev, calls: list | None = None):
+    """One experiment cell as ``eval.experiments._run`` composes it, with
+    the scenario built on ``dev`` (timed apart) and the run timed to its
+    numpy results, split by ``run_vil``'s stages (``scoring+other``: the
+    priors, the timeline merge, the scores and the numpy results). Counts
+    the kernel's launches; with ``calls`` keeps the inputs of every k-NN
+    call. Returns (config, scenario, result dict, printed numbers)."""
+    sync = _sync_of(dev)
+    cfg = EX.experiment_config(spec)
+    sync()
+    t0 = time.perf_counter()
+    sc = EX.experiment_scenario(spec, cfg, dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    timer = StageTimer(dev)
+    K.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with timed_run_vil_stages(timer), (
+            recorded_knn_calls(calls) if calls is not None
+            else contextlib.nullcontext()):
+        out = EX.run_scenario(spec, cfg, sc)
+    sync()
+    wall = time.perf_counter() - t0
+    stages = dict(timer.seconds)
+    stages["scoring+other"] = wall - sum(stages.values())
+    nums = {"kind": spec.kind, "sweeps": len(out["lidar_times"]),
+            "events": out["events"], "scenario_s": build_s, "wall_s": wall,
+            "events_per_s": out["events"] / wall, "stage_s": stages,
+            "launches": K.KERNEL_LAUNCHES,
+            "ate_fused_m": out["ate_fused"], "ate_vio_m": out["ate_vio"],
+            "ate_lidar_m": out["ate_lidar"],
+            "keep_share": out["gate_keep_fraction"],
+            "median_n_corr": float(np.median(out["n_corr"]))}
+    print("  " + json.dumps(nums), flush=True)
+    check(bool(np.isfinite(out["fused_poses"]).all()),
+          f"{spec.kind}: non-finite fused pose")
+    check(out["ate_fused"] < 1.0, f"{spec.kind}: fused ATE "
+          f"{out['ate_fused']} m")
+    return cfg, sc, out, nums
+
+
+def pooled_numbers(results: list) -> dict:
+    """The pooled AUC table (every score against its typed labels, as
+    ``aggregate_report`` computes it without the figures), the calibrated
+    gate thresholds and the raw-threshold parity."""
+    pooled, lab_trans, lab_rot = EX._pool_scores(results)
+    aucs = {}
+    for name, s in pooled.items():
+        lab = lab_rot if EX._is_rot_metric(name) else lab_trans
+        if lab.any() and not lab.all():
+            aucs[name] = float(R.roc(
+                torch.as_tensor(lab), torch.as_tensor(s),
+                low_is_degenerate=EX._low_is_degenerate(name)).auc)
+    thresholds = EX.calibrate_thresholds(results)
+    return {"auc": aucs, "calibrated_thresholds": thresholds,
+            "raw_threshold_parity": EX.raw_threshold_parity(results,
+                                                            thresholds)}
+
+
+def compare_experiment(a: dict, b: dict, n: int) -> dict:
+    """Largest differences between two result dicts over their first ``n``
+    sweeps and the VIO frames up to the last of them: poses, Hessians and
+    n_corr, the count of score entries whose NaN / +inf / -inf class
+    differs, and per score series max |Δ| / max(|b|, 1) over its finite
+    entries."""
+    nv = int(np.searchsorted(b["vio_times"], b["lidar_times"][n - 1] + 1e-9))
+    cut = lambda r, key, m: np.asarray(r[key][:m], np.float64)
+    va, vb = cut(a, "vio_poses", nv), cut(b, "vio_poses", nv)
+    la, lb = cut(a, "lidar_poses", n), cut(b, "lidar_poses", n)
+    fa, fb = cut(a, "fused_poses", n + nv), cut(b, "fused_poses", n + nv)
+    Ha, Hb = cut(a, "hessian", n), cut(b, "hessian", n)
+    na, nb = cut(a, "n_corr", n), cut(b, "n_corr", n)
+    out = {
+        "vio_trans_err_m": np.abs(va[:, 4:] - vb[:, 4:]).max(),
+        "vio_quat_err": np.abs(va[:, :4] - vb[:, :4]).max(),
+        "lidar_trans_err_m": np.abs(la[:, 4:] - lb[:, 4:]).max(),
+        "lidar_quat_err": np.abs(la[:, :4] - lb[:, :4]).max(),
+        "hessian_rel_err": (np.linalg.norm(Ha - Hb, axis=(1, 2)) / np.maximum(
+            np.linalg.norm(Hb, axis=(1, 2)), 1e-9)).max(),
+        "n_corr_rel_err": (np.abs(na - nb) / np.maximum(np.abs(nb), 1)).max(),
+        "fused_trans_err_m": np.abs(fa[:, 4:] - fb[:, 4:]).max(),
+        "fused_quat_err": np.abs(fa[:, :4] - fb[:, :4]).max()}
+    out = {k: float(v) for k, v in out.items()}
+    mismatch, score_err = 0, {}
+    for name in b["scores"]:
+        sa, sb = cut(a["scores"], name, n), cut(b["scores"], name, n)
+        for cls in (np.isnan, np.isposinf, np.isneginf):
+            mismatch += int((cls(sa) != cls(sb)).sum())
+        fin = np.isfinite(sa) & np.isfinite(sb)
+        score_err[name] = float((np.abs(sa[fin] - sb[fin]) / np.maximum(
+            np.abs(sb[fin]), 1.0)).max()) if fin.any() else 0.0
+    out["score_class_mismatches"] = mismatch
+    out["score_rel_err"] = score_err
+    return out
+
+
+# Phase 7 CPU rerun tolerances: the corridor's first 5 sweeps and 10
+# frames from the card's own scenario. The corridor leaves x unobservable,
+# so its f32 runs wander further from a float64 run than the town's do.
+# Measured with tools/cross_band.py on the 1.2 s cell (H100 80GB HBM3,
+# 700 W), card / CPU f32 against a float64 CPU run: LiDAR 2.5 / 2.0 cm and
+# 9.5e-4 / 9.6e-4 in the quaternion, Hessians 39% / 10% (Frobenius),
+# n_corr 4.0% / 4.4%, VIO 2.7e-6 / 2.9e-6 m, fused 1.6e-7 m; scores, max
+# |Δ| / max(|score|, 1) per series, up to 0.41 / 0.12; card against CPU
+# f32 directly: Hessians 38%, a score 0.38. Each device repeats itself bit
+# for bit and the NaN / inf pattern of every score was identical, so that
+# pattern is held exactly and the rest to 1.6-4.5 times the two bands
+# together. The VIO and fused tolerances stay phase 6's.
+EXP_CROSS_TOL = {
+    "vio_trans_err_m": CROSS_TOL["vio_trans_err_m"],
+    "vio_quat_err": CROSS_TOL["vio_quat_err"],
+    "lidar_trans_err_m": 0.2, "lidar_quat_err": 4e-3,
+    "hessian_rel_err": 0.8, "n_corr_rel_err": 0.3,
+    "fused_trans_err_m": CROSS_TOL["fused_trans_err_m"],
+    "fused_quat_err": CROSS_TOL["fused_quat_err"],
+}
+SCORE_TOL = 1.0
+
+
+def drive_experiments(dev) -> dict:
+    """Phase 7: the smoke grid's four cells on the card, the kernel against
+    knn_torch on every k-NN call of the corridor cell, the corridor's dist
+    slopes, the pooled report, and the CPU rerun of the corridor's head
+    (which also gives the k-NN calls per sweep every cell must launch)."""
+    specs = EX.smoke_grid(seeds=(0,), duration=EXPERIMENT_DURATION)
+    results, cells, corridor, calls = [], {}, None, []
+    for spec in specs:
+        keep = calls if spec.kind == "corridor" else None
+        cfg, sc, out, nums = run_cell(spec, dev, keep)
+        results.append(out)
+        cells[spec.kind] = nums
+        if spec.kind == "corridor":
+            corridor = (spec, cfg, sc, out)
+
+    print(f"[kernel vs plain on the corridor cell] its {len(calls)} k-NN "
+          f"calls", flush=True)
+    max_err = check_drive_knn(calls)
+    T = cells["corridor"]["sweeps"]
+    per_sweep = {}
+    for q, t, _ in calls:
+        key = f"{q.shape[0]}x{t.shape[0]}"
+        per_sweep[key] = per_sweep.get(key, 0) + 1
+    per_sweep = {k: v / T for k, v in per_sweep.items()}
+    known = {f"{Q}x{M}" for Q, M in MAIN_PATH_SHAPES[:2] + EXPERIMENT_SHAPES}
+    check(set(per_sweep) == known,
+          f"experiment k-NN shapes {sorted(per_sweep)}, want {sorted(known)}")
+    calls.clear()
+
+    spec, cfg, sc, out = corridor
+    sl = {a: out["scores"][f"dist_slope_{a}"][1:] for a in ("tx", "ty", "tz")}
+    tx = float(np.median(sl["tx"]))
+    cross = float(np.median(np.maximum(sl["ty"], sl["tz"])))
+    print(f"  corridor dist slopes: median tx {tx:.4g}, median max(ty, tz) "
+          f"{cross:.4g}", flush=True)
+    check(tx < 0.1 * cross, f"corridor dist_slope_tx {tx} >= 0.1 x {cross}")
+
+    pooled = pooled_numbers(results)
+    print("  pooled AUC " + json.dumps(pooled["auc"], sort_keys=True),
+          flush=True)
+    print("  calibrated thresholds "
+          + json.dumps(pooled["calibrated_thresholds"]), flush=True)
+    print("  raw-threshold parity "
+          + json.dumps(pooled["raw_threshold_parity"]), flush=True)
+
+    n = CROSS_EXP_SWEEPS
+    print(f"[experiment cross-check] corridor's first {n} sweeps on the CPU",
+          flush=True)
+    cpu_calls = []
+    K.KERNEL_LAUNCHES = 0
+    with recorded_knn_calls(cpu_calls):
+        cpu_out = EX.run_scenario(spec, cfg,
+                                  scenario_head(sc, n, torch.device("cpu")))
+    check(K.KERNEL_LAUNCHES == 0, "the CPU rerun launched the CUDA kernel")
+    check(len(cpu_calls) % n == 0, f"{len(cpu_calls)} CPU k-NN calls over "
+          f"{n} sweeps")
+    cpu_per_sweep = len(cpu_calls) // n
+    cpu_calls.clear()
+    diff = compare_experiment(out, cpu_out, n)
+    print("  " + json.dumps(diff), flush=True)
+    for kind, nums in cells.items():
+        want = cpu_per_sweep * nums["sweeps"]
+        check(nums["launches"] == want, f"{kind}: {nums['launches']} k-NN "
+              f"launches, want {cpu_per_sweep} per sweep ({want})")
+    check(diff["score_class_mismatches"] == 0,
+          "the CPU rerun's scores have another NaN / inf pattern")
+    for key, tol in EXP_CROSS_TOL.items():
+        check(diff[key] <= tol, f"experiment cross-check {key} {diff[key]} "
+              f"> {tol}")
+    worst = max(diff["score_rel_err"], key=diff["score_rel_err"].get)
+    check(diff["score_rel_err"][worst] <= SCORE_TOL,
+          f"experiment cross-check score {worst} "
+          f"{diff['score_rel_err'][worst]} > {SCORE_TOL}")
+    return {"cells": cells, "pooled": pooled, "cross": diff,
+            "knn_calls_per_sweep": per_sweep, "max_err": max_err}
+
+
 def main() -> int:
     # Phase 1: the device.
     if not torch.cuda.is_available():
@@ -795,6 +1050,7 @@ def main() -> int:
     print(f"[kernel vs plain on the drive] the cold run's "
           f"{len(full['knn_calls'])} k-NN calls", flush=True)
     max_err = max(max_err, check_drive_knn(full.pop("knn_calls")))
+    launches_4 = full["numbers"]["launches"][1]
 
     # Phase 5: synthetic feature tracks, shorter.
     print(f"[synthetic tracks] town drive {SHORT_DURATION} s -> run_vil",
@@ -804,9 +1060,21 @@ def main() -> int:
     # Phase 6: CPU cross-check of the image-driven run.
     print(f"[cross-check] first {CROSS_SWEEPS} sweeps on the CPU", flush=True)
     cross_check(cfg, fcfg, x, (full["frames"], full["result"]))
+    del full, x, sc
 
+    # Phase 7: the degeneracy-experiment grid.
+    print(f"[experiments] smoke grid, {EXPERIMENT_DURATION} s per cell: "
+          f"experiment_config -> experiment_scenario -> run_scenario",
+          flush=True)
+    exp = drive_experiments(dev)
+    max_err = max(max_err, exp["max_err"])
+
+    launches = {"town_image_drive": launches_4}
+    launches.update({f"experiments_{k}": c["launches"]
+                     for k, c in exp["cells"].items()})
     print(f"card: {card}")
-    print(kernels_line(card, full["numbers"]["launches"][1], max_err, shapes))
+    print(kernels_line(card, launches, max_err, shapes,
+                       exp["knn_calls_per_sweep"]))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

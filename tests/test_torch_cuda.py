@@ -8,7 +8,11 @@ machine with an NVIDIA card and no JAX:
 Tolerance: both sides evaluate ‖q‖² − 2q·t + ‖t‖² in f32 and sum in
 another order, so a distance moves by a few ulps of its largest term:
 4 ulps of max ‖q‖² + max ‖t‖² (about 0.05 m² at 100 m offsets). Indices
-must agree wherever the neighbours are further apart than that."""
+must agree wherever the neighbours are further apart than that.
+
+Also here: the degeneracy scores on the card (CUDA's LU, eigen and
+singular-value routines) against the CPU's, in float64, with the NaN and
+±inf pattern of a series that starts with the zero Hessian."""
 
 import pytest
 import torch
@@ -22,7 +26,8 @@ pytestmark = pytest.mark.cuda
 # the CPU by tests/test_torch_knn_plan.py.
 ONE_PAST = [(193, 1937), (385, 4001)]
 SHAPES = [(192, 1920), (384, 3984), (1920, 2048), (3984, 4096), (77, 4097),
-          (1, 6), (3984, 49152), (64, 1), (1, 4096), *ONE_PAST]
+          (1, 6), (3984, 49152), (64, 1), (1, 4096), *ONE_PAST,
+          (1920, 4096), (3984, 8192)]     # the experiment harness's submaps
 # Queries on targets at 100 m (distances cancel to a few ulps either side
 # of 0), and on targets copied 2,048 places on into another split.
 SEL = [0, 3, 64, 500, 1023, 1024, 1500, 2047]
@@ -103,3 +108,25 @@ def test_knn_routes_cuda_tensors_to_the_kernel(dev):
     assert K.KERNEL_LAUNCHES == before + 1
     with pytest.raises(TypeError):
         K.knn(q.double(), t.double(), m.double())
+
+
+def test_score_series_on_the_card_matches_the_cpu(dev):
+    from vil_sensor_fusion_tpu_torch.degeneracy import gate, metrics
+
+    g = torch.Generator().manual_seed(5)
+    A = torch.randn(9, 6, 6, generator=g, dtype=torch.float64)
+    mats = A @ A.transpose(-1, -2) + 0.5 * torch.eye(6, dtype=torch.float64)
+    mats[0] = 0.0                              # the map-seeding first sweep
+    mats[4] = 0.0
+    mats[4][[0, 0, 3, 3], [0, 3, 0, 3]] = torch.tensor(
+        [4.0, 1.0, 1.0, 3.0], dtype=torch.float64)          # rank 2
+    names = sorted(metrics.METRICS)
+    cpu = gate.score_series(names, mats)
+    card = gate.score_series(names, mats.to(dev))
+    for name in names:
+        for a, b in zip(card[name], cpu[name]):
+            a = a.cpu()
+            for cls in (torch.isnan, torch.isposinf, torch.isneginf):
+                assert torch.equal(cls(a), cls(b)), name
+            fin = torch.isfinite(b)
+            torch.testing.assert_close(a[fin], b[fin], rtol=1e-9, atol=1e-9)

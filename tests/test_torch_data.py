@@ -106,3 +106,76 @@ def test_odometry_noise_comes_from_the_generator():
     assert torch.equal(a.poses, b.poses)
     d = (a.poses[:, 4:] - clean.poses[:, 4:]).std().item()
     assert 0.04 < d < 0.06
+
+
+def _worlds():
+    """Every kind's JAX world at a test size (the random ones drawn by
+    JAX, then handed over)."""
+    return {
+        "corridor": JR.corridor_world(dtype=DT),
+        "arena": JR.arena_world(dtype=DT),
+        "road": JR.road_world(length=60.0, seed=1, dtype=DT),
+        "field": JR.field_world(10.0, 30.0, 40.0, seed=1, dtype=DT),
+        "tunnel": JR.tunnel_world(x0=6.0, x1=30.0, dtype=DT),
+        "tunnel_road": JR.tunnel_world(x0=6.0, x1=30.0, road_length=40.0,
+                                       dtype=DT),
+    }
+
+
+@pytest.mark.parametrize("kind", ["corridor", "arena", "road", "field",
+                                  "tunnel", "tunnel_road"])
+def test_worlds_raycast_like_jax(kind):
+    """A world handed over gives the same sweep, static and motion-distorted
+    (one batched cast with an origin per azimuth column), to 1e-9; the hit
+    masks are equal. (The random worlds come from numpy's RNG in the port,
+    so only a handed-over world can equal JAX's.)"""
+    world = _worlds()[kind]
+    tw = convert.to_torch(world, "cpu")
+    p0, p1 = _pose(8.0, 0.3, 0.1), _pose(8.4, 0.35, 0.16)
+    sj = JR.raycast_motion(world, p0, p1)
+    st = TR.raycast_motion(tw, *(torch.from_numpy(np.asarray(p))
+                                 for p in (p0, p1)))
+    rj = JR.raycast(world, p1)
+    rt = TR.raycast(tw, torch.from_numpy(np.asarray(p1)))
+    for a, b in ((st, sj), (rt, rj)):
+        np.testing.assert_array_equal(a.mask.numpy(), np.asarray(b.mask))
+        np.testing.assert_allclose(a.xyz.numpy(), np.asarray(b.xyz),
+                                   rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(a.rng.numpy(), np.asarray(b.rng),
+                                   rtol=1e-9, atol=1e-9)
+    assert float(st.mask.mean()) > 0.3
+    # The distortion is there: the moving sweep is not the static one.
+    assert np.abs(st.xyz.numpy() - rt.xyz.numpy()).max() > 0.05
+
+
+def test_worlds_match_jax_in_structure():
+    """The corridor and the arena come from no RNG and equal JAX's; the
+    random worlds have JAX's shapes and sink the same kind of boxes (below
+    z = -50) to keep them."""
+    kw = dict(dtype=torch.float64, device="cpu")
+    for j, t in ((JR.corridor_world(dtype=DT), TR.corridor_world(**kw)),
+                 (JR.arena_world(dtype=DT), TR.arena_world(**kw))):
+        for f in j._fields:
+            np.testing.assert_allclose(getattr(t, f).numpy(),
+                                       np.asarray(getattr(j, f)),
+                                       rtol=0, atol=1e-15)
+    for j, t, cleared, n_walls in (
+            (JR.road_world(60.0, dtype=DT), TR.road_world(60.0, **kw), None,
+             0),
+            (JR.field_world(10.0, 30.0, 40.0, dtype=DT),
+             TR.field_world(10.0, 30.0, 40.0, **kw), (10.0, 30.0), 0),
+            (JR.tunnel_world(dtype=DT), TR.tunnel_world(**kw),
+             (20.0 - 4.0, 44.0 + 4.0), 3)):
+        for f in j._fields:
+            assert tuple(getattr(t, f).shape) == np.asarray(
+                getattr(j, f)).shape
+        if cleared is None:
+            continue
+        # The boxes in the cleared x-range are sunk, the others stand (the
+        # tunnel's walls come last).
+        n = t.box_min.shape[0] - n_walls
+        bmin, bmax = t.box_min.numpy()[:n], t.box_max.numpy()[:n]
+        inside = (bmax[:, 0] > cleared[0]) & (bmin[:, 0] < cleared[1])
+        sunk = bmin[:, 2] < -50.0
+        np.testing.assert_array_equal(sunk, inside)
+        assert sunk.any() and (~sunk).any()

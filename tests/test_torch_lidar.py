@@ -165,7 +165,7 @@ def test_topk_ties_resolve_to_lowest_index():
 def _map_from(fs, pose, leaf, capacity):
     cfg = JV.VoxelMapConfig(capacity=capacity, leaf=leaf)
     w = JL.quat_rotate(JL.pose_quat(pose)[None], fs[0]) + JL.pose_trans(pose)
-    m = JV.insert(JV.empty(cfg, DT), w, fs[1], JL.pose_trans(pose), cfg)
+    m = JV.insert(JV.empty(cfg, w.dtype), w, fs[1], JL.pose_trans(pose), cfg)
     return m.points, m.mask
 
 
@@ -259,3 +259,75 @@ def test_odometry_run_matches_jax(dtype):
         # cov = σ²H⁻¹: meaningful only where nothing flipped.
         np.testing.assert_allclose(ot.cov.numpy(), _np(oj.cov), rtol=1e-6,
                                    atol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["corridor", "town"])
+def test_perturbation_dists_match_jax(kind):
+    """The 6×15 perturbation-sweep distances at a registered pose, in
+    float64, from a JAX-built sweep and map: the fits (one k-NN each) are
+    taken once, then all 90 perturbed poses at once. Same arithmetic on
+    both sides: 1e-9. The shifts are ``jnp.linspace``'s values."""
+    dt = jnp.float64
+    world = (JR.corridor_world(dtype=dt) if kind == "corridor"
+             else JR.town_world(n_boxes=24, seed=2, dtype=dt))
+    p0 = _pose().astype(dt)
+    p1 = JL.pose_retract(p0, jnp.asarray([0.4, 0.05, 0.0, 0.0, 0.0, 0.02],
+                                         dt))
+    f0 = JF.extract(JR.raycast(world, p0))
+    f1 = JF.extract(JR.raycast(world, p1))
+    mc, mcm = _map_from((f0.less_sharp, f0.less_sharp_mask), p0, 0.2, 4096)
+    ms, msm = _map_from((jnp.concatenate([f0.flat, f0.less_flat]),
+                         jnp.concatenate([f0.flat_mask, f0.less_flat_mask])),
+                        p0, 0.4, 8192)
+    args = (p1, f1.less_sharp, f1.less_sharp_mask,
+            jnp.concatenate([f1.flat, f1.less_flat]),
+            jnp.concatenate([f1.flat_mask, f1.less_flat_mask]),
+            mc, mcm, ms, msm)
+    icfg = JLi.IcpConfig(iters=6, degen_eigval=5.0)
+    dj = jax.jit(lambda *a: JLi.icp.perturbation_dists(*a, icfg))(*args)
+    dtt = TLi.icp.perturbation_dists(*convert.to_torch(args, "cpu"),
+                                     _t(icfg))
+    for f in dj._fields:
+        np.testing.assert_allclose(getattr(dtt, f).numpy(),
+                                   _np(getattr(dj, f)), rtol=1e-9, atol=1e-9,
+                                   err_msg=f)
+    np.testing.assert_array_equal(dtt.shift_trans.numpy(),
+                                  np.asarray(jnp.linspace(0.0, 0.2, 15)))
+    assert float(dtt.dists[:, -1].min()) > 0.0
+
+
+def test_odometry_emits_dists_like_jax():
+    """``emit_dists``: the stacked ``dists`` of a 3-sweep float64 drive
+    equal JAX's (zeros on the map-seeding first sweep); without it the
+    field is zero-filled, as JAX's ``_zero_dists``."""
+    dt = jnp.float64
+    world = JR.town_world(n_boxes=24, seed=2, dtype=dt)
+    poses = jnp.stack([_pose(x=0.4 * i, y=0.02 * i, yaw=0.02 * i)
+                       for i in range(3)]).astype(dt)
+    sweeps = JR.sweep_series(world, poses)
+    prev = jnp.concatenate([poses[:1], poses[:-1]])
+    guesses = jax.vmap(JL.pose_between)(prev, poses)
+    cfg = JLi.LidarOdomConfig(
+        icp=JLi.IcpConfig(iters=2, degen_eigval=5.0),
+        odom_icp=JLi.IcpConfig(iters=2, max_corr_dist=2.0, degen_eigval=5.0),
+        corner_map=JV.VoxelMapConfig(capacity=4096, leaf=0.2),
+        surf_map=JV.VoxelMapConfig(capacity=8192, leaf=0.4),
+        submap_corners=512, submap_surfs=1024, emit_dists=True,
+        dists_shifts=7, guess_is_delta=True)
+    st = JLi.odometry.init(cfg, dt, pose0=poses[0])
+    _, oj = JLi.odometry.run(cfg, st, sweeps, guesses)
+    _, ot = TLi.odometry.run(_t(cfg), _t(st), _t(sweeps), _t(guesses))
+    np.testing.assert_allclose(ot.pose.numpy(), _np(oj.pose), atol=1e-8)
+    assert tuple(ot.dists.dists.shape) == (3, 6, 7)
+    for f in oj.dists._fields:
+        np.testing.assert_allclose(getattr(ot.dists, f).numpy(),
+                                   _np(getattr(oj.dists, f)),
+                                   rtol=1e-9, atol=1e-9, err_msg=f)
+    assert bool((ot.dists.dists[1:] > 0).all())
+    c = _t(cfg._replace(emit_dists=False))
+    _, off = TLi.odometry.run(c, _t(st), _t(sweeps), _t(guesses))
+    zj = JLi.odometry._zero_dists(cfg, dt)
+    for f in zj._fields:
+        want = np.broadcast_to(_np(getattr(zj, f)),
+                               (3,) + _np(getattr(zj, f)).shape)
+        np.testing.assert_array_equal(getattr(off.dists, f).numpy(), want)

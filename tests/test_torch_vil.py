@@ -111,6 +111,10 @@ def test_run_vil_matches_jax():
                                np.asarray(rj.lidar_out.pose), atol=1e-5)
     np.testing.assert_allclose(rt.lidar_out.n_corr.numpy(),
                                np.asarray(rj.lidar_out.n_corr), atol=2)
+    # emit_dists is off: both sides return the zero-filled dists.
+    assert rt.lidar_out.dists._fields == rj.lidar_out.dists._fields
+    for a, b in zip(rt.lidar_out.dists, rj.lidar_out.dists):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     # The LiDAR stage from the JAX run's own priors (vil.py:139-154).
     vio_sel = rj.vio_out.pose[jnp.asarray(sc.lidar_guess_idx)]
     prev = jnp.concatenate([pose0[None], vio_sel[:-1]], axis=0)

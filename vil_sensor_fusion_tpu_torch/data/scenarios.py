@@ -1,10 +1,15 @@
-"""Full-system synthetic scenario: the ``town`` drive.
+"""Full-system synthetic scenarios: one call builds everything a VIL run
+needs from an analytic trajectory through a geometric world.
 
-Port of the ``town`` case of ``vil_sensor_fusion_tpu/data/scenarios.py``:
-an analytic trajectory through a box town, sampled into an IMU stream, VIO
-frames, raycast VLP-16 sweeps and ground truth at the VIO and LiDAR event
-times. The VIO frames are synthetic feature tracks by default, or, with
-``vio_from_images``, the image tracker's output on rendered frames.
+Port of ``vil_sensor_fusion_tpu/data/scenarios.py``: the ``town`` drive
+(well conditioned), the ``corridor`` (translation-degenerate) and ``arena``
+(rotation-degenerate) kinds, and the ``tunnel`` and ``field`` drives, which
+enter and leave degeneracy mid-drive. Each is sampled into an IMU stream,
+VIO frames, raycast VLP-16 sweeps (motion-distorted with
+``distort_sweeps``), ground truth at the VIO and LiDAR event times, and the
+labeled degenerate windows. The VIO frames are synthetic feature tracks by
+default, or, with ``vio_from_images``, the image tracker's output on
+rendered frames. The random worlds come from numpy's RNG (``raycast``).
 """
 
 from __future__ import annotations
@@ -39,12 +44,41 @@ class VilScenario(NamedTuple):
     lidar_guess_idx: np.ndarray     # vio frame index per sweep
     gt_vio_poses: np.ndarray
     gt_lidar_poses: np.ndarray
+    # Labeled degenerate time windows [(start_s, end_s, kind), ...] (the
+    # DEGEN_TRANS / DEGEN_ROT dictionaries of make_prettier_graphs.py:46-120);
+    # empty for well-conditioned scenarios.
+    degen_windows: tuple = ()
     # Rendered frames (T_v, H, W) and the per-frame sweep points in the
     # camera frame + validity (T_v, P, 3) / (T_v, P), kept when
     # vio_from_images.
     images: object = None
     cam_points: object = None
     cam_point_valid: object = None
+
+
+def _corridor_traj(speed: float = 4.0) -> syn.Trajectory:
+    """Straight drive down the corridor (x axis) at sensor height 1.5 m."""
+    def pos_fn(t):
+        return torch.stack([speed * t, 0.05 * torch.sin(0.5 * t),
+                            1.5 + 0.0 * t])
+
+    def rot_fn(t):
+        return lie.so3_exp(torch.stack([0.0 * t, 0.0 * t,
+                                        0.01 * torch.sin(0.3 * t)]))
+
+    return syn.trajectory(pos_fn, rot_fn)
+
+
+def _spin_traj(yaw_rate: float = 0.5) -> syn.Trajectory:
+    """Rotate in place at the origin (sensor height 1.5 m) at a steady yaw
+    rate."""
+    def pos_fn(t):
+        return torch.stack([0.0 * t, 0.0 * t, 1.5 + 0.0 * t])
+
+    def rot_fn(t):
+        return lie.so3_exp(torch.stack([0.0 * t, 0.0 * t, yaw_rate * t]))
+
+    return syn.trajectory(pos_fn, rot_fn)
 
 
 def _town_traj(speed: float = 4.0) -> syn.Trajectory:
@@ -95,10 +129,15 @@ def build(
     vio_from_images: bool = False,
     frontend_cfg: V.FrontendConfig | None = None,
     sweep_stride: int = 4,
+    distort_sweeps: bool = False,
     generator: torch.Generator | None = None,
 ) -> VilScenario:
-    """Build the ``town`` drive on ``device``. IMU noise needs a
-    ``generator``.
+    """Build a drive of ``kind`` (town, corridor, arena, field, tunnel) on
+    ``device``. IMU noise needs a ``generator``.
+
+    ``distort_sweeps``: cast each sweep's azimuth columns from the sensor
+    pose at their scan time and record them uncompensated
+    (:func:`raycast.raycast_motion`), as a spinning LiDAR does.
 
     ``vio_from_images``: instead of synthetic feature tracks, render the
     camera frames and run the image tracker frontend (Shi-Tomasi + KLT +
@@ -106,14 +145,10 @@ def build(
     to be a real camera mounting (``frontend.forward_camera_extrinsics``);
     ``sweep_stride`` decimates the sweeps' azimuth for the depth
     association."""
-    if kind != "town":
-        raise ValueError(f"only the 'town' scenario is ported, got {kind!r}")
     if vio_cfg is None:
         vio_cfg = V.VioConfig()
-    world = rc.town_world(n_boxes=28, seed=seed, dtype=dtype, device=device)
-    traj = _town_traj()
-    drive_speed = 4.0
-    lm_extent, lm_height = 40.0, (0.5, 10.0)
+    world, traj, degen_windows, drive_speed, lm_extent, lm_height = _kind(
+        kind, duration, seed, dtype, device)
 
     imu_t = (torch.arange(int(duration * imu_hz) + 20, dtype=dtype,
                           device=device) / imu_hz)
@@ -130,7 +165,13 @@ def build(
         traj, vio_times, imu_hz=imu_hz, dtype=dtype, device=device)
     lidar_times = (np.arange(int(duration * lidar_hz)) + 1.0) / lidar_hz
     poses_lidar = poses_at(lidar_times)
-    sweeps = rc.sweep_series(world, poses_lidar)
+    if distort_sweeps:
+        poses_start = poses_at(lidar_times - 1.0 / lidar_hz)
+        sw = [rc.raycast_motion(world, ps, pe)
+              for ps, pe in zip(poses_start, poses_lidar)]
+        sweeps = Sweep(*(torch.stack(f, dim=0) for f in zip(*sw)))
+    else:
+        sweeps = rc.sweep_series(world, poses_lidar)
 
     images = pts_cam = sw_msk = None
     if vio_from_images:
@@ -166,8 +207,77 @@ def build(
         lidar_times=lidar_times, sweeps=sweeps, lidar_guess_idx=guess_idx,
         gt_vio_poses=poses_vio.cpu().numpy(),
         gt_lidar_poses=poses_lidar.cpu().numpy(),
+        degen_windows=degen_windows,
         images=images, cam_points=pts_cam, cam_point_valid=sw_msk,
     )
+
+
+def _kind(kind: str, duration: float, seed: int, dtype, device):
+    """(world, trajectory, labeled windows, drive speed, landmark extent,
+    landmark heights) of a scenario kind."""
+    degen_windows = ()
+    drive_speed = 4.0               # sizes the VIO landmark field
+    lm_extent, lm_height = 40.0, (0.5, 10.0)
+    if kind == "corridor":
+        world = rc.corridor_world(width=8.0, height=5.0, dtype=dtype,
+                                  device=device)
+        traj = _corridor_traj()
+        lm_extent, lm_height = 30.0, (0.5, 4.5)
+        degen_windows = ((0.0, duration, "trans"),)
+    elif kind == "arena":
+        # Spin at the centre of a surface of revolution: yaw unobservable
+        # for ICP, translations well conditioned (DEGEN_ROT).
+        world = rc.arena_world(radius=9.0, faces=96, dtype=dtype,
+                               device=device)
+        traj = _spin_traj()
+        lm_extent, lm_height = 12.0, (0.5, 4.5)
+        degen_windows = ((0.0, duration, "rot"),)
+        drive_speed = 0.0
+    elif kind == "town":
+        world = rc.town_world(n_boxes=28, seed=seed, dtype=dtype,
+                              device=device)
+        traj = _town_traj()
+    elif kind == "field":
+        # Road drive whose middle third is open field, at motorcycle speed.
+        # Translation starves once the nearest structure is ~25 m away; yaw
+        # information is lever-arm weighted, so only the stretch with
+        # ≥ ~110 m of clearance is labeled rot-degenerate, inside the trans
+        # window.
+        speed = 16.0
+        drive_speed = speed
+        length = speed * duration
+        x0, x1 = length / 3.0, length * 2.0 / 3.0
+        world = rc.field_world(x0=x0, x1=x1, length=length, seed=seed,
+                               dtype=dtype, device=device)
+        traj = _town_traj(speed=speed)
+        transit_half = (x1 - x0) / speed / 2.0
+        m_trans = min(25.0 / speed, transit_half)
+        m_rot = max(m_trans,
+                    min(110.0 / speed, max(transit_half - 0.5, 0.0)))
+        degen_windows = (
+            (x0 / speed + m_trans, x1 / speed - m_trans, "trans"),
+            (x0 / speed + m_rot, x1 / speed - m_rot, "rot"),
+        )
+    elif kind == "tunnel":
+        # A town-like road drive through a mid-drive tunnel capped at 40 m
+        # (the reference's tunnels are portal-visible), labeled inside the
+        # tube with half a sweep of margin at each portal, clamped to the
+        # transit time.
+        speed = 4.0
+        length = speed * duration
+        tunnel_len = min(length / 3.0, 40.0)
+        x0 = length / 2.0 - tunnel_len / 2.0
+        x1 = length / 2.0 + tunnel_len / 2.0
+        world = rc.tunnel_world(x0=x0, x1=x1, width=8.0, height=5.0,
+                                n_boxes=28, seed=seed, road_length=length,
+                                dtype=dtype, device=device)
+        traj = _corridor_traj(speed=speed)
+        margin = min(0.5, (x1 - x0) / speed / 2.0)
+        degen_windows = ((x0 / speed + margin, x1 / speed - margin,
+                          "trans"),)
+    else:
+        raise ValueError(kind)
+    return world, traj, degen_windows, drive_speed, lm_extent, lm_height
 
 
 def render_frontend_inputs(

@@ -1,16 +1,24 @@
-"""The thesis's final log-det degeneracy gate
-(degerate_odometry_filter.cpp:29-48) over batched 6×6 ICP Hessians.
+"""Degeneracy gating over batched 6×6 ICP Hessians.
 
-Port of the gate half of ``vil_sensor_fusion_tpu/degeneracy/gate.py``; the
-metric library, ``score_series`` and ``calibrate_threshold`` are not ported
-yet. The drop decision is a 0/1 weight, computed on the device.
+Port of ``vil_sensor_fusion_tpu/degeneracy/gate.py``:
+
+1. The thesis's final log-det gate (degerate_odometry_filter.cpp:29-48):
+   :func:`logdet_gate`, the drop decision a 0/1 weight computed on the
+   device.
+2. The experimental score node (degeneracy_detection.py): named metrics of
+   :mod:`.metrics` on the all/trans/rot sub-blocks of a trajectory's
+   matrices, with first-difference derivatives (:func:`score_series`), and
+   the Youden-J threshold calibration from labeled windows
+   (:func:`calibrate_threshold`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Mapping, NamedTuple, Sequence
 
 import torch
+
+from . import metrics as M
 
 
 class GateConfig(NamedTuple):
@@ -62,3 +70,98 @@ def logdet_gate(
     return GateResult(rot_d_opt=ld_rot, trans_d_opt=ld_trans,
                       keep=keep.to(hessian.dtype),
                       valid=valid.to(hessian.dtype))
+
+
+def calibrate_threshold(
+    scores: torch.Tensor,
+    degenerate: torch.Tensor,
+) -> torch.Tensor:
+    """The gate threshold that maximises Youden's J (TPR − FPR) when every
+    score below it is dropped.
+
+    Args:
+      scores: (T,) gate scores (lower = more degenerate).
+      degenerate: (T,) bool/0-1 labels (1 = inside a degenerate window).
+
+    Returns the scalar threshold (drop iff score < threshold). Non-finite
+    scores count for neither class; the sort is stable (NaN last), as
+    ``jnp.argsort``, and J is formed in float64 so the first best cut is
+    the one JAX picks.
+    """
+    lab = degenerate.to(torch.bool)
+    finite = torch.isfinite(scores)
+    n_pos = torch.clamp(torch.sum(lab & finite), min=1).double()
+    n_neg = torch.clamp(torch.sum(~lab & finite), min=1).double()
+    order = torch.argsort(scores, stable=True)
+    s_sorted = scores[order]
+    l_sorted = lab[order] & finite[order]
+    h_sorted = (~lab[order]) & finite[order]
+    # Dropping everything <= s_sorted[i]:
+    tp = torch.cumsum(l_sorted, dim=0)          # degenerate correctly dropped
+    fp = torch.cumsum(h_sorted, dim=0)          # healthy wrongly dropped
+    best = torch.argmax(tp / n_pos - fp / n_neg)
+    # Threshold just above the best cut (midpoint to the next score).
+    s_next = torch.cat([s_sorted[1:], s_sorted[-1:] + 1.0])
+    return 0.5 * (s_sorted[best] + s_next[best])
+
+
+class DegeneracyScores(NamedTuple):
+    """Per-metric score streams over a trajectory (the DegeneracyScore msg
+    fields)."""
+
+    score_all: torch.Tensor        # (T,)
+    score_trans: torch.Tensor      # (T,)
+    score_rot: torch.Tensor        # (T,)
+    derivative_all: torch.Tensor   # (T,) first difference (prev = 0 at t=0)
+    derivative_trans: torch.Tensor
+    derivative_rot: torch.Tensor
+
+
+def _diff0(x: torch.Tensor) -> torch.Tensor:
+    """score[t] - score[t-1] with score[-1] = 0 (the node's init state)."""
+    return x - torch.cat([torch.zeros_like(x[:1]), x[:-1]], dim=0)
+
+
+def score_series(
+    names: Sequence[str],
+    mats: torch.Tensor,
+    poses: torch.Tensor | None = None,
+) -> Mapping[str, DegeneracyScores]:
+    """Evaluate named metrics over a trajectory of 6x6 matrices, on their
+    device.
+
+    Args:
+      names: metric names from :data:`metrics.METRICS`.
+      mats: (T, 6, 6) covariance or Hessian series.
+      poses: optional (T, 6) pose series (x,y,z,roll,pitch,yaw) for the
+        KL-style metrics.
+
+    Returns {name: DegeneracyScores}. mat_prev / pose_prev are the previous
+    element (identity / zeros at t=0, the node's init state).
+    """
+    T = mats.shape[0]
+    eye = torch.eye(6, dtype=mats.dtype, device=mats.device)[None]
+    prev = torch.cat([eye, mats[:-1]], dim=0)
+    if poses is None:
+        poses = torch.zeros((T, 6), dtype=mats.dtype, device=mats.device)
+    pose_prev = torch.cat([torch.zeros_like(poses[:1]), poses[:-1]], dim=0)
+
+    blocks = {
+        "all": (mats, prev, poses, pose_prev),
+        "trans": (mats[:, 0:3, 0:3], prev[:, 0:3, 0:3],
+                  poses[:, 0:3], pose_prev[:, 0:3]),
+        "rot": (mats[:, 3:6, 3:6], prev[:, 3:6, 3:6],
+                poses[:, 3:6], pose_prev[:, 3:6]),
+    }
+    out = {}
+    for name in names:
+        fn = M.METRICS[name]
+        s = {k: fn(mat_now=mn, mat_prev=mp, pose_now=pn, pose_prev=pp)
+             for k, (mn, mp, pn, pp) in blocks.items()}
+        out[name] = DegeneracyScores(
+            score_all=s["all"], score_trans=s["trans"], score_rot=s["rot"],
+            derivative_all=_diff0(s["all"]),
+            derivative_trans=_diff0(s["trans"]),
+            derivative_rot=_diff0(s["rot"]),
+        )
+    return out

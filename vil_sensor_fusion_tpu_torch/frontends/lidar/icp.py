@@ -4,8 +4,8 @@ point-to-plane Gauss-Newton with an explicit 6×6 Hessian.
 Port of ``vil_sensor_fusion_tpu/frontends/lidar/icp.py``: static shapes
 with 0/1 masks, fixed GN iterations, LOAM's degeneracy-projected update, and
 the same correspondence-refresh schedule (``fit_every`` /
-``final_refresh``). ``perturbation_dists`` is not ported yet (it is off on
-the main path, ``LidarOdomConfig.emit_dists=False``).
+``final_refresh``), and the per-DOF perturbation-sweep correspondence
+distances (``perturbation_dists``) behind the dist_slope metrics.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..._linspace import linspace0
 from ...core import lie
 from ...ops import eig3 as E3
 from ...ops import eig6 as E6
@@ -162,6 +163,70 @@ def degeneracy_projected_step(H, g, cfg: IcpConfig):
         torch.mean(torch.diagonal(H)), min=1.0)
     dx_proj = -E6.eig_solve(eigval, V, g, damping=damping, keep=ok)
     return dx_proj, 1.0 - ok
+
+
+class PerturbationDists(NamedTuple):
+    """The thesis fork's per-DOF perturbation-sweep correspondence
+    distances (OdometryWithHessian dists/dists_surface/dists_corner (6×S)
+    and shift_trans/shift_rot (S)). Row d is the mean correspondence
+    distance after perturbing the solution pose along DOF d (ρx ρy ρz θx θy
+    θz) by each shift; a flat row means the cost ignores that DOF."""
+
+    dists: torch.Tensor          # (6, S) combined mean distance
+    dists_corner: torch.Tensor   # (6, S)
+    dists_surface: torch.Tensor  # (6, S)
+    shift_trans: torch.Tensor    # (S,)
+    shift_rot: torch.Tensor      # (S,)
+
+
+def perturbation_dists(
+    pose: torch.Tensor,
+    corners: torch.Tensor, corner_mask: torch.Tensor,
+    surfs: torch.Tensor, surf_mask: torch.Tensor,
+    map_corners: torch.Tensor, map_corner_mask: torch.Tensor,
+    map_surfs: torch.Tensor, map_surf_mask: torch.Tensor,
+    cfg: IcpConfig = IcpConfig(),
+    n_shifts: int = 15,
+    max_shift_trans: float = 0.2,
+    max_shift_rot: float = 0.2,
+) -> PerturbationDists:
+    """Sweep the solution pose along each DOF and record how the matched
+    correspondence distances grow. The line and plane fits (one k-NN each)
+    are taken once, at the solution; the 6×S perturbed poses are then
+    evaluated together as one ``(6·S, Q, 3)`` batch. Shifts run over
+    0..0.2 (special_graphs.py:37) with ``jnp.linspace``'s values, in
+    float64 and cast."""
+    dtype, device = pose.dtype, pose.device
+    centroid, ldir, wl = line_fits(
+        pose, corners, corner_mask, map_corners, map_corner_mask, cfg)
+    nrm, d_off, wp = plane_fits(
+        pose, surfs, surf_mask, map_surfs, map_surf_mask, cfg)
+    nl = torch.clamp(torch.sum(wl), min=1.0)
+    np_ = torch.clamp(torch.sum(wp), min=1.0)
+
+    s_t = linspace0(max_shift_trans, n_shifts, dtype, device)
+    s_r = linspace0(max_shift_rot, n_shifts, dtype, device)
+    mags = torch.cat([s_t.expand(3, n_shifts), s_r.expand(3, n_shifts)])
+    xi = (torch.eye(6, dtype=dtype, device=device)[:, None, :]
+          * mags[:, :, None]).reshape(6 * n_shifts, 6)
+    poses = lie.pose_retract(pose, xi)                     # (6·S, 7)
+    q = lie.pose_quat(poses)[:, None, :]
+    t = lie.pose_trans(poses)[:, None, :]
+
+    v = lie.quat_rotate(q, corners) + t - centroid          # (6·S, Qc, 3)
+    perp = v - ldir * torch.einsum("pqi,qi->pq", v, ldir)[..., None]
+    dl = torch.linalg.vector_norm(perp, dim=-1)
+    ps = lie.quat_rotate(q, surfs) + t                      # (6·S, Qs, 3)
+    dp = torch.abs(torch.einsum("qi,pqi->pq", nrm, ps) + d_off)
+    sl = torch.sum(wl * dl, dim=-1)
+    sp = torch.sum(wp * dp, dim=-1)
+    shape = (6, n_shifts)
+    return PerturbationDists(
+        dists=((sl + sp) / (nl + np_)).reshape(shape),
+        dists_corner=(sl / nl).reshape(shape),
+        dists_surface=(sp / np_).reshape(shape),
+        shift_trans=s_t, shift_rot=s_r,
+    )
 
 
 def register(

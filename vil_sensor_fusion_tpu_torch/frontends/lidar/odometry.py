@@ -2,6 +2,10 @@
 two-stage registration (scan-to-scan odometry, then scan-to-map refinement)
 → map update.
 
+Per sweep it returns the odometry pose, the 6×6 ICP Hessian (the
+degeneracy signal), a pose covariance and, with ``emit_dists``, the
+perturbation-sweep correspondence distances behind the dist_slope metrics.
+
 Port of ``vil_sensor_fusion_tpu/frontends/lidar/odometry.py``. ``run`` is a
 Python loop over sweeps in place of ``lax.scan``. Its per-sweep control is
 device-side (``torch.where`` on the ``initialized`` flag), so a run makes
@@ -16,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from ... import DEFAULT_DEVICE
+from ... import DEFAULT_DEVICE, _tree
 from ...core import lie
 from ...ops import eig6 as E6
 from . import features as feat
@@ -32,7 +36,7 @@ class LidarOdomConfig(NamedTuple):
                                         degen_eigval=5.0)
     two_stage: bool = True       # scan-to-scan odometry before mapping
     undistort: bool = True       # ego-motion compensation (scanPeriod)
-    emit_dists: bool = False     # perturbation-sweep dists (not ported)
+    emit_dists: bool = False     # perturbation-sweep correspondence dists
     dists_shifts: int = 15       # S of the 6×S dists arrays
     corner_map: vm.VoxelMapConfig = vm.VoxelMapConfig(capacity=32768,
                                                       leaf=0.2)
@@ -70,6 +74,19 @@ class LidarOdomResult(NamedTuple):
     cost: torch.Tensor
     odom_pose: torch.Tensor     # (7,) scan-to-scan stage
     odom_hessian: torch.Tensor  # (6, 6)
+    # Perturbation-sweep correspondence distances (zeros when disabled).
+    dists: I.PerturbationDists
+
+
+def _zero_dists(cfg: LidarOdomConfig, dtype, device) -> I.PerturbationDists:
+    S = cfg.dists_shifts
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return I.PerturbationDists(dists=z(6, S), dists_corner=z(6, S),
+                               dists_surface=z(6, S), shift_trans=z(S),
+                               shift_rot=z(S))
 
 
 def init(cfg: LidarOdomConfig, dtype=torch.float32,
@@ -125,8 +142,6 @@ def step(
 ) -> tuple[LidarOdomState, LidarOdomResult]:
     """Process one sweep. ``pose_guess`` is the motion prior (absolute, or
     relative in guess_is_delta mode)."""
-    if cfg.emit_dists:
-        raise NotImplementedError("perturbation_dists is not ported")
     dtype = state.pose.dtype
     has_map = state.initialized > 0
     delta_guess = pose_guess
@@ -189,6 +204,15 @@ def step(
     else:
         cov = torch.zeros((6, 6), dtype=dtype, device=pose.device)
 
+    # --- Perturbation-sweep correspondence distances ------------------------
+    if cfg.emit_dists:
+        dists = I.perturbation_dists(
+            pose, q_corners, q_corner_mask, q_surfs, q_surf_mask,
+            sub_c.points, sub_c.mask, sub_s.points, sub_s.mask,
+            cfg.icp, n_shifts=cfg.dists_shifts)
+    else:
+        dists = _zero_dists(cfg, dtype, pose.device)
+
     # --- Map + prev-sweep pool update ---------------------------------------
     w_corners = _to_world(pose, q_corners)
     w_surfs = _to_world(pose, q_surfs)
@@ -206,7 +230,7 @@ def step(
     return new_state, LidarOdomResult(
         pose=pose, hessian=res.hessian, cov=cov,
         degenerate=res.degenerate, n_corr=res.n_corr, cost=res.cost,
-        odom_pose=odom_pose, odom_hessian=odom_hessian,
+        odom_pose=odom_pose, odom_hessian=odom_hessian, dists=dists,
     )
 
 
@@ -225,7 +249,7 @@ def run(
         state, res = step(cfg, state, sweep, pose_guesses[t],
                           compute_cov=False)
         outs.append(res)
-    res = LidarOdomResult(*(torch.stack(f, dim=0) for f in zip(*outs)))
+    res = _tree.tree_map(lambda *xs: torch.stack(xs, dim=0), *outs)
     T = res.pose.shape[0]
     has_map = (torch.arange(T, device=init0.device) > 0) | (init0 > 0)
     cov = _covariance(cfg, res.hessian, res.cost, res.n_corr, has_map)

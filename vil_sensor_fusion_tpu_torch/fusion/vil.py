@@ -10,9 +10,12 @@ degenerate_odometry_filter + gtsam_fusion_node), stage for stage:
                                                              → fused pose
 
 Port of ``vil_sensor_fusion_tpu/fusion/vil.py:run_vil`` in its geometric
-VIO mode. Not ported yet: the direct photometric VIO
-(``VioConfig.use_photometric``), the model-parallel ``mesh``, and the bag
-entry points (``run_vil_from_bag``, ``build_vio_frames_from_bag``).
+VIO mode. With ``LidarOdomConfig.emit_dists`` the LiDAR stage also returns
+the perturbation-sweep distances (``lidar_out.dists``) that the experiment
+harness (``eval/experiments.py``) turns into dist slopes. Not ported yet:
+the direct photometric VIO (``VioConfig.use_photometric``), the
+model-parallel ``mesh``, and the bag entry points (``run_vil_from_bag``,
+``build_vio_frames_from_bag``).
 """
 
 from __future__ import annotations
