@@ -302,3 +302,50 @@ def render_frontend_inputs(
         poses_cam, torch.as_tensor(sc.gt_lidar_poses, dtype=dtype,
                                    device=device), sweep_stride)
     return images.to(dtype), pts_cam.to(dtype), sw_msk.to(dtype)
+
+
+def write_scenario_bag(
+    path,
+    sc: VilScenario,
+    compression: str = "none",
+    imu_topic: str = "/imu/fusion",
+    lidar_topic: str = "/lidar",
+    camera_topic: str = "/cam_forward/image_raw",
+    gt_topic: str = "/gt/odometry",
+) -> None:
+    """Serialize a scenario to a **raw-sensor** rosbag — the product
+    replacement for the Carla recording pipeline
+    (carla_tools/launch/carla_ros_bridge.launch records exactly these
+    topics): IMU, each sweep's valid points as a PointCloud2, the camera
+    frames as mono8 Images, and the ground truth at the frames' times as
+    Odometry. The bag replays through the full stack via
+    ``fusion.vil.run_vil_from_bag`` / ``cli run --bag``.
+
+    Needs a scenario with ``images`` (built with ``vio_from_images=True``,
+    or given rendered frames)."""
+    from .rosbag_writer import BagWriter
+
+    if sc.images is None:
+        raise ValueError("scenario has no images — build with "
+                         "vio_from_images=True")
+    host = lambda x: (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                      else np.asarray(x))
+    with BagWriter(path, compression=compression) as w:
+        imu_t = host(sc.imu_times).astype(float)
+        acc = host(sc.imu_accel).astype(float)
+        gyr = host(sc.imu_gyro).astype(float)
+        for i in range(len(imu_t)):
+            w.write_msg(imu_topic, "sensor_msgs/Imu", float(imu_t[i]),
+                        gyr[i], acc[i])
+        xyz = host(sc.sweeps.xyz).astype(np.float32)
+        msk = host(sc.sweeps.mask) > 0
+        for i, t in enumerate(np.asarray(sc.lidar_times, float)):
+            w.write_msg(lidar_topic, "sensor_msgs/PointCloud2", float(t),
+                        xyz[i][msk[i]])
+        imgs = np.clip(host(sc.images), 0, 255).astype(np.uint8)
+        for i, t in enumerate(np.asarray(sc.vio_times, float)):
+            w.write_msg(camera_topic, "sensor_msgs/Image", float(t),
+                        imgs[i])
+        for i, t in enumerate(np.asarray(sc.vio_times, float)):
+            w.write_msg(gt_topic, "nav_msgs/Odometry", float(t),
+                        np.asarray(sc.gt_vio_poses[i], float))

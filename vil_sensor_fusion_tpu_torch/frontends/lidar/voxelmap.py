@@ -1,8 +1,10 @@
-"""Fixed-capacity voxel feature map (open-addressed spatial hash).
+"""Fixed-capacity voxel feature map.
 
-Port of ``vil_sensor_fusion_tpu/frontends/lidar/voxelmap.py``: the hashed
-insert and the nearest-``budget`` submap. The exact argsort ``insert`` is
-not ported yet; ``insert_auto`` raises for ``hashed=False``.
+Port of ``vil_sensor_fusion_tpu/frontends/lidar/voxelmap.py``: the exact
+insert (packed voxel keys, stable argsort, first occurrence wins, nearest
+``capacity`` kept), the O(N) hashed insert (an open-addressed spatial
+hash), and the nearest-``budget`` submap. ``VoxelMapConfig.hashed`` picks
+the insert (``insert_auto``).
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from ... import DEFAULT_DEVICE
+from ... import DEFAULT_DEVICE, _scatter
 
 
 class VoxelMapConfig(NamedTuple):
@@ -33,6 +35,64 @@ def empty(cfg: VoxelMapConfig, dtype=torch.float32,
         points=torch.zeros((cfg.capacity, 3), dtype=dtype, device=device),
         mask=torch.zeros((cfg.capacity,), dtype=dtype, device=device),
     )
+
+
+def _voxel_keys(pts: torch.Tensor, center: torch.Tensor,
+                cfg: VoxelMapConfig) -> torch.Tensor:
+    """Exact packed int32 voxel key relative to ``center`` (no collisions
+    within ±half_extent·leaf of the sensor; outside, coordinates clamp and
+    merge — those points are beyond keep_radius anyway)."""
+    H = cfg.grid_half_extent
+    g = torch.floor((pts - center[None, :]) / cfg.leaf).to(torch.int32)
+    g = torch.clamp(g, -H, H - 1) + H
+    return (g[:, 0] * (2 * H) + g[:, 1]) * (2 * H) + g[:, 2]
+
+
+def _top(score: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k``: the k largest, ties (the many −inf) to the lowest
+    index first — a stable descending sort (``torch.topk`` promises no
+    order among ties)."""
+    top, idx = torch.sort(score, descending=True, stable=True)
+    return top[:k], idx[:k]
+
+
+def insert(
+    m: VoxelMap,
+    new_pts: torch.Tensor,
+    new_mask: torch.Tensor,
+    center: torch.Tensor,
+    cfg: VoxelMapConfig,
+) -> VoxelMap:
+    """Merge new points into the map: voxel-dedup (old points win their
+    voxel, as LOAM's map absorbs the scan after its own downsample), then
+    keep the ``capacity`` nearest-to-sensor survivors."""
+    dtype = m.points.dtype
+    C = cfg.capacity
+    pts = torch.cat([m.points, new_pts.to(dtype)], dim=0)
+    ok = torch.cat([m.mask, new_mask.to(dtype)], dim=0)
+    N = pts.shape[0]
+
+    keys = _voxel_keys(pts, center, cfg)
+    # Invalid points get a unique sentinel key range so they never block a
+    # real voxel; old points (lower index) win their voxel by the stable sort.
+    sentinel = (2_000_000_000
+                - torch.arange(N, dtype=torch.int32, device=pts.device))
+    keys = torch.where(ok > 0, keys, sentinel)
+    order = torch.argsort(keys, stable=True)
+    sorted_keys = keys[order]
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=pts.device),
+                       sorted_keys[1:] != sorted_keys[:-1]])
+    keep_sorted = first & (ok[order] > 0)
+
+    # Score: valid and deduplicated, nearest to the sensor first.
+    d = torch.linalg.vector_norm(pts[order] - center[None, :], dim=-1)
+    in_range = d < cfg.keep_radius
+    score = torch.where(keep_sorted & in_range, -d, -torch.inf)
+    top, sel = _top(score, C)
+    idx = order[sel]
+    new_mask_out = (top > -torch.inf).to(dtype)
+    return VoxelMap(points=pts[idx] * new_mask_out[:, None],
+                    mask=new_mask_out)
 
 
 def insert_hashed(
@@ -76,11 +136,9 @@ def insert_hashed(
     # scatter applies the updates in order, so on the CPU the highest point
     # index lands last and stays; a CUDA index_put_ would pick any. Here
     # the highest index wins explicitly, deterministically.
-    order = torch.arange(new_pts.shape[0], device=new_pts.device)
-    last = torch.full((C + 1,), -1, dtype=torch.int64, device=new_pts.device)
     tgt = torch.where(win, slot, C)                 # losers go to slot C
-    last = last.scatter_reduce(0, tgt, order, reduce="amax")
-    win = win & (last[slot] == order)
+    order = torch.arange(new_pts.shape[0], device=new_pts.device)
+    win = win & (_scatter.last_writer(C + 1, tgt)[slot] == order)
     tgt = torch.where(win, slot, C)
     points = torch.cat([m.points, m.points[:1]], dim=0)
     points[tgt] = new_pts.to(dtype)
@@ -91,11 +149,10 @@ def insert_hashed(
 
 
 def insert_auto(m, new_pts, new_mask, center, cfg: VoxelMapConfig):
-    """Dispatch on cfg.hashed (only the hashed insert is ported)."""
-    if not cfg.hashed:
-        raise NotImplementedError("the exact argsort voxel insert is not "
-                                  "ported; use VoxelMapConfig(hashed=True)")
-    return insert_hashed(m, new_pts, new_mask, center, cfg)
+    """Dispatch on cfg.hashed."""
+    if cfg.hashed:
+        return insert_hashed(m, new_pts, new_mask, center, cfg)
+    return insert(m, new_pts, new_mask, center, cfg)
 
 
 def submap(
@@ -113,7 +170,6 @@ def submap(
     descending sort resolves ties to the lowest index, as ``lax.top_k``."""
     d = torch.linalg.vector_norm(m.points - center[None, :], dim=-1)
     score = torch.where((m.mask > 0) & (d < radius), -d, -torch.inf)
-    top, idx = torch.sort(score, descending=True, stable=True)
-    top, idx = top[:budget], idx[:budget]
+    top, idx = _top(score, budget)
     ok = (top > -torch.inf).to(m.points.dtype)
     return VoxelMap(points=m.points[idx] * ok[:, None], mask=ok)

@@ -9,13 +9,15 @@ degenerate_odometry_filter + gtsam_fusion_node), stage for stage:
     IMU ──────────────────────────────────────────────────┴→ fusion engine
                                                              → fused pose
 
-Port of ``vil_sensor_fusion_tpu/fusion/vil.py:run_vil`` in its geometric
-VIO mode. With ``LidarOdomConfig.emit_dists`` the LiDAR stage also returns
-the perturbation-sweep distances (``lidar_out.dists``) that the experiment
+Port of ``vil_sensor_fusion_tpu/fusion/vil.py`` in its geometric VIO
+mode: ``run_vil`` over array streams, and the raw-sensor bag entry points
+(``build_vio_frames_from_bag``, ``run_vil_from_bag``: bag → organized
+sweeps → LiDAR odometry, bag → images → tracker → EKF, gate, fusion). With
+``LidarOdomConfig.emit_dists`` the LiDAR stage also returns the
+perturbation-sweep distances (``lidar_out.dists``) that the experiment
 harness (``eval/experiments.py``) turns into dist slopes. Not ported yet:
-the direct photometric VIO (``VioConfig.use_photometric``), the
-model-parallel ``mesh``, and the bag entry points (``run_vil_from_bag``,
-``build_vio_frames_from_bag``).
+the direct photometric VIO (``VioConfig.use_photometric``,
+``build_photo_inputs_from_bag``) and the model-parallel ``mesh``.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import _precision
+from .. import DEFAULT_DEVICE, _precision
 from .. import convert
 from ..core import lie
+from ..data import ingest as IG
 from ..degeneracy import gate as DG
 from ..frontends import lidar as L
 from ..frontends import vio as V
@@ -62,6 +65,13 @@ class VilResult(NamedTuple):
     gate: DG.GateResult           # over lidar sweeps
 
 
+def _refuse_photometric(cfg: VilConfig) -> None:
+    if cfg.vio.use_photometric:
+        raise NotImplementedError(
+            "the direct photometric VIO (VioConfig.use_photometric) is not "
+            "ported yet: ROADMAP.md Queue 1 item 2")
+
+
 def run_vil(
     cfg: VilConfig,
     # IMU stream (for preintegration in the fusion back-end):
@@ -86,10 +96,7 @@ def run_vil(
     consecutive sweeps, with sweep 0 relative to the VIO initial pose."""
     _precision.require_full_f32()
     # --- Stage 1: VIO ------------------------------------------------------
-    if cfg.vio.use_photometric:
-        raise NotImplementedError(
-            "the direct photometric VIO (VioConfig.use_photometric) is not "
-            "ported yet: ROADMAP.md Queue 1 item 2")
+    _refuse_photometric(cfg)
     _, vio_out = V.run(cfg.vio, vio_state, vio_frames)
 
     # --- Stage 2: LiDAR odometry -------------------------------------------
@@ -129,3 +136,102 @@ def run_vil(
                       imu_accel.to(dtype), imu_gyro.to(dtype))
     return es, VilResult(fused=fused, timeline=tl, vio_out=vio_out,
                          lidar_out=lidar_out, gate=gate_res)
+
+
+def _bag_frame_streams(
+    ba: IG.BagArrays,
+    pose_ic,                       # (7,) imu_T_camera
+    sweep_stride: int,
+    dtype,
+):
+    """Shared bag→frame-stream prep, on the device of the bag's sweeps:
+    per-frame IMU windows and the most recent sweep's points moved into
+    the camera frame by the rig extrinsics alone (LiDAR at the IMU); the
+    ≤1-sweep-period motion between sweep and frame is absorbed by the
+    coarse depth association, as ROVIO's useDepthFromLiDAR
+    (rovio.cfg:132-138)."""
+    device = ba.sweeps.xyz.device
+    imu_w = IG.imu_windows_from_stream(
+        ba.imu_times, ba.imu_accel, ba.imu_gyro, ba.cam_times, dtype=dtype,
+        device=device)
+    T_l = len(ba.lidar_times)
+    sw_idx = torch.as_tensor(np.clip(
+        np.searchsorted(ba.lidar_times, ba.cam_times + 1e-9) - 1, 0, None),
+        device=device)
+    xyz = ba.sweeps.xyz[:, :, ::sweep_stride, :].reshape(T_l, -1, 3)[sw_idx]
+    msk = ba.sweeps.mask[:, :, ::sweep_stride].reshape(T_l, -1)[sw_idx]
+    pose_ci = lie.pose_inverse(torch.as_tensor(pose_ic, dtype=dtype,
+                                               device=device))
+    pts_cam = (lie.quat_rotate(lie.pose_quat(pose_ci)[None, None], xyz)
+               + lie.pose_trans(pose_ci)[None, None])
+    return imu_w, pts_cam.to(dtype), msk.to(dtype)
+
+
+def build_vio_frames_from_bag(
+    fe_cfg,
+    ba: IG.BagArrays,
+    pose_ic,                       # (7,) imu_T_camera
+    num_slots: int,
+    sweep_stride: int = 4,
+    dtype=torch.float32,
+) -> V.VioFrameInput:
+    """Raw bag streams → VioFrameInput via the image tracker front-end, on
+    the device of the bag's sweeps."""
+    imu_w, pts_cam, msk = _bag_frame_streams(ba, pose_ic, sweep_stride, dtype)
+    images = torch.as_tensor(ba.images, dtype=dtype, device=pts_cam.device)
+    return V.frontend.build_frames(fe_cfg, images, pts_cam, msk, imu_w,
+                                   num_slots)
+
+
+def run_vil_from_bag(
+    path,
+    cfg: VilConfig | None = None,
+    fe_cfg=None,
+    pose_ic=None,
+    topics: dict | None = None,
+    sweep_stride: int = 4,
+    dtype=torch.float32,
+    device=DEFAULT_DEVICE,
+):
+    """Replay a raw-sensor bag through the FULL stack on ``device`` — bag →
+    organized sweeps → LiDAR odometry, bag → images → tracker → EKF,
+    degeneracy gate, fusion — one call reproducing fusion_carla.launch's
+    job (gtsam_fusion/launch/fusion_carla.launch:13-97).
+
+    Returns (engine_state, VilResult, BagArrays)."""
+    cfg = cfg or VilConfig()
+    _refuse_photometric(cfg)
+    if pose_ic is None:
+        pose_ic = cfg.vio.pose_ic
+    fe_cfg = fe_cfg or V.FrontendConfig(cam=cfg.vio.cam)
+    ba = IG.load_bag(path, dtype=dtype, device=device, **(topics or {}))
+    frames = build_vio_frames_from_bag(fe_cfg, ba, pose_ic,
+                                       cfg.vio.num_landmarks,
+                                       sweep_stride=sweep_stride, dtype=dtype)
+
+    # Initial state: GT odometry if recorded, else identity at rest (the
+    # reference hardcodes identity priors — GraphManager.cpp:20-35).
+    tensor = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    vel0 = torch.zeros(3, dtype=dtype, device=device)
+    if ba.gt_poses is not None and len(ba.gt_poses):
+        pose0 = tensor(ba.gt_poses[0])
+        if len(ba.gt_poses) > 1:
+            dt = float(ba.gt_times[1] - ba.gt_times[0])
+            vel0 = (tensor(ba.gt_poses[1, 4:7]) - pose0[4:7]) / max(dt, 1e-6)
+    else:
+        pose0 = lie.pose_identity(dtype, device=device)
+
+    zeros6 = torch.zeros(6, dtype=dtype, device=device)
+    vio_state = V.init(cfg.vio, pose0, vel0, zeros6)
+    lidar_state = L.odometry.init(cfg.lidar, dtype, pose0=pose0)
+    guess_idx = np.clip(
+        np.searchsorted(ba.cam_times, ba.lidar_times + 1e-9) - 1, 0, None)
+    t0 = tensor(min(float(ba.imu_times[0]), float(ba.cam_times[0])) - 1e-3)
+    es = E.init(cfg.fusion, pose0, vel0, zeros6, t0)
+
+    es, res = run_vil(
+        cfg, tensor(ba.imu_times), tensor(ba.imu_accel), tensor(ba.imu_gyro),
+        ba.cam_times, frames, vio_state,
+        ba.lidar_times, ba.sweeps, lidar_state,
+        lidar_guess_from_vio_idx=guess_idx, engine_state=es)
+    return es, res, ba

@@ -1,8 +1,13 @@
-"""Failure detection and elastic recovery."""
+"""Auxiliary subsystems: checkpoint / resume, tracing / profiling, failure
+detection and elastic recovery."""
 
-from . import health
+from . import checkpoint, health, tracing
+from .checkpoint import CheckpointManager, restore, save
 from .health import (HealthLimits, all_finite, check_state,
                      finite_fraction, guarded_update, wrap_step)
+from .tracing import StageTimer, annotate, device_trace
 
-__all__ = ["health", "HealthLimits", "all_finite", "check_state",
-           "finite_fraction", "guarded_update", "wrap_step"]
+__all__ = ["checkpoint", "health", "tracing", "CheckpointManager",
+           "restore", "save", "HealthLimits", "all_finite", "check_state",
+           "finite_fraction", "guarded_update", "wrap_step", "StageTimer",
+           "annotate", "device_trace"]
