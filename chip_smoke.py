@@ -63,6 +63,20 @@ result line:
    ``ingest.load_bag(..., device="cpu")`` of the same file (masks and xyz
    equal up to ``BAG_EDGE_CELLS``, ranges within an ulp).
 
+9. Lanes and collectives, on a one-rank NCCL mesh of the card
+   (``parallel.mesh.make_mesh``): phase 4's first 18 events as 8 lanes
+   (the bench's batch; lanes 1-7 with seeded odometry perturbations, each
+   a different LiDAR keep mask, the odd ones a dropped VIO frame, so some
+   solves are masked per lane) through ``parallel.batched_fusion_run``
+   once, then the last lane alone through ``fusion.run``: events/s of
+   both; lane 0 against phase 4's fused outputs and the last lane against
+   its single run within phase 6's fused tolerances, every pose finite.
+   Then ``parallel.make_sharded_lidar_step`` on phase 4's first two sweeps
+   over the size-1 model group, equal bit for bit to ``odometry.step``,
+   with the kernel against ``knn_torch`` on each of its k-NN calls; and
+   ``parallel.windows.solve_sharded`` against ``solve_sequential`` on a
+   32-state chain (tests/test_windows_sharding.py's tolerance).
+
 The last two lines are a JSON object describing the kernels (one sweep's
 sums in ms: ``ms`` the wrapper's call time, ``device_ms`` the kernel's
 own; per-shape µs under ``per_shape_us``; launches per driven path; the
@@ -88,6 +102,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vil_sensor_fusion_tpu_torch import _build, _precision, _tree
 from vil_sensor_fusion_tpu_torch import cli
@@ -108,6 +123,9 @@ from vil_sensor_fusion_tpu_torch.frontends.lidar import voxelmap as vm
 from vil_sensor_fusion_tpu_torch.frontends.vio import frontend as F
 from vil_sensor_fusion_tpu_torch.fusion import vil as VIL
 from vil_sensor_fusion_tpu_torch.ops import knn as K
+from vil_sensor_fusion_tpu_torch.parallel import mesh as PM
+from vil_sensor_fusion_tpu_torch.parallel import ops as POPS
+from vil_sensor_fusion_tpu_torch.parallel import windows as PW
 
 # The four k-NN launches of one sweep (Q queries × M targets): line and
 # plane fits of the scan-to-scan stage, then of the scan-to-map stage.
@@ -1257,6 +1275,211 @@ def replay_bag(dev) -> dict:
             "max_err": max_err}
 
 
+# --------------------------------------------------------------------------
+# Phase 9: lanes and collectives
+# --------------------------------------------------------------------------
+
+LANES = 8               # the bench's BATCH (bench.py:64)
+LANE_EVENTS = 18        # phase 4's first events, run as LANES lanes
+LANE_SIGMA = (0.02, 0.005)   # m, rad: lanes 1-7's odometry perturbation
+CHAIN_N = 32            # the window-axis chain (tests/test_windows_sharding)
+
+
+class LaneSource(NamedTuple):
+    """What phase 9 takes from phase 4's cold run on the card."""
+
+    timeline: fu.Timeline       # its first LANE_EVENTS events
+    fused: fu.FusedOutput       # the same events' fused outputs
+    imu: tuple                  # (times, accel, gyro)
+    pose0: torch.Tensor
+    vel0: torch.Tensor
+    sweeps: L.Sweep             # its first two sweeps
+    guesses: torch.Tensor       # their LiDAR priors (relative, from the VIO)
+
+
+def lane_source(x: DriveInputs, res, n: int = LANE_EVENTS) -> LaneSource:
+    vio_sel = res.vio_out.pose[torch.as_tensor(x.guess_idx[:2],
+                                               device=x.pose0.device)]
+    prev = torch.cat([x.pose0[None], vio_sel[:-1]], dim=0)
+    return LaneSource(
+        timeline=fu.Timeline(*(f[:n] for f in res.timeline)),
+        fused=fu.FusedOutput(*(f[:n] for f in res.fused)),
+        imu=(x.imu_times, x.imu_accel, x.imu_gyro), pose0=x.pose0,
+        vel0=x.vel0, sweeps=L.Sweep(*(f[:2] for f in x.sweeps)),
+        guesses=lie.pose_between(prev, vio_sel))
+
+
+def make_lanes(cfg: VIL.VilConfig, src: LaneSource, B: int = LANES,
+               seed: int = 9):
+    """B lanes of phase 4's first events: lane 0 as it ran; lanes 1.. with
+    seeded perturbations of the odometry poses and each a different LiDAR
+    keep mask (one sweep dropped). The LiDAR source does not solve at this
+    config (``optimize_after_odom`` false), so the odd lanes also drop one
+    VIO frame each: there the other lanes solve and that lane does not
+    (a masked solve). Returns the lanes' (states, timelines, imu_t, imu_a,
+    imu_g)."""
+    tl = src.timeline
+    dev, dt = src.pose0.device, src.pose0.dtype
+    n = tl.times.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    source = tl.source.cpu().numpy()
+    lid_ev, vio_ev = np.nonzero(source == 1)[0], np.nonzero(source == 0)[0]
+    keep = tl.keep.expand(B, n).clone()
+    odo = tl.odo_pose.expand(B, n, 7).clone()
+    for b in range(1, B):
+        xi = torch.cat([LANE_SIGMA[0] * torch.randn(n, 3, generator=g),
+                        LANE_SIGMA[1] * torch.randn(n, 3, generator=g)], 1)
+        odo[b] = lie.pose_retract(odo[b], xi.to(dev, dt))
+        keep[b, int(lid_ev[(b - 1) % len(lid_ev)])] = 0.0
+        if b % 2:
+            keep[b, int(vio_ev[(2 + b) % len(vio_ev)])] = 0.0
+    lanes = lambda v: v.expand((B,) + v.shape).clone()
+    tl_b = fu.Timeline(*(lanes(f) for f in tl))._replace(keep=keep,
+                                                         odo_pose=odo)
+    zeros6 = torch.zeros(6, dtype=dt, device=dev)
+    es = fu.init(cfg.fusion, src.pose0, src.vel0, zeros6,
+                 torch.zeros((), dtype=dt, device=dev) - 1e-3)
+    return (_tree.tree_map(lanes, es), tl_b, *(lanes(v) for v in src.imu))
+
+
+def lane_err(a: fu.FusedOutput, b: fu.FusedOutput) -> dict:
+    pa, pb = a.poses.double().cpu().numpy(), b.poses.double().cpu().numpy()
+    return {"fused_trans_err_m": float(np.abs(pa[:, 4:] - pb[:, 4:]).max()),
+            "fused_quat_err": float(np.abs(pa[:, :4] - pb[:, :4]).max())}
+
+
+def drive_lanes(cfg: VIL.VilConfig, src: LaneSource, mesh,
+                B: int = LANES) -> dict:
+    """8 lanes through ``parallel.batched_fusion_run`` on the mesh's data
+    axis, once; lane 0 against phase 4's outputs, the last lane against a
+    single-lane ``fusion.run`` of it."""
+    lanes = make_lanes(cfg, src, B)
+    n = src.timeline.times.shape[0]
+    sync = _sync_of(src.pose0.device)
+    run = POPS.batched_fusion_run(mesh, cfg.fusion)
+    sync()
+    t0 = time.perf_counter()
+    _, out = run(*lanes)
+    sync()
+    wall_b = time.perf_counter() - t0
+    last = _tree.tree_map(lambda v: v[B - 1], lanes)
+    sync()
+    t0 = time.perf_counter()
+    _, out_1 = fu.run(cfg.fusion, *last)
+    sync()
+    wall_1 = time.perf_counter() - t0
+    solved = out.solved.cpu().numpy() > 0.5
+    lane_of = lambda b: fu.FusedOutput(*(f[b] for f in out))
+    nums = {"lanes": B, "events": n,
+            "lane_events_per_s": B * n / wall_b, "lane_wall_s": wall_b,
+            "single_events_per_s": n / wall_1, "single_wall_s": wall_1,
+            "lane_over_single_wall_per_event": wall_b / wall_1,
+            "masked_solve_events": int((solved.any(0)
+                                        & ~solved.all(0)).sum()),
+            "lane0_vs_phase4": lane_err(lane_of(0), src.fused),
+            "last_lane_vs_single": lane_err(lane_of(B - 1), out_1)}
+    check(tuple(out.poses.shape) == (B, n, 7),
+          f"lane poses shape {tuple(out.poses.shape)}")
+    check(bool(torch.isfinite(out.poses).all()), "non-finite lane pose")
+    check(nums["masked_solve_events"] > 0, "no event solved in some lanes "
+          "and not in others")
+    for key in ("lane0_vs_phase4", "last_lane_vs_single"):
+        for k, v in nums[key].items():
+            check(v <= CROSS_TOL[k], f"{key} {k} {v} > {CROSS_TOL[k]}")
+    return nums
+
+
+def _leaves_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(_tree.tree_leaves(a),
+                                                  _tree.tree_leaves(b))
+               if isinstance(x, torch.Tensor))
+
+
+def drive_sharded_lidar(cfg: VIL.VilConfig, src: LaneSource, mesh,
+                        calls: list) -> dict:
+    """``parallel.make_sharded_lidar_step`` on phase 4's first two sweeps
+    over the mesh's model axis (the first seeds the map), its k-NN calls
+    recorded; then the unsharded ``odometry.step`` on the same sweeps,
+    which it must equal bit for bit at a model axis of size 1."""
+    dt = src.pose0.dtype
+    step = POPS.make_sharded_lidar_step(mesh, cfg.lidar)
+    sweeps = [L.Sweep(*(f[i] for f in src.sweeps)) for i in range(2)]
+    K.KERNEL_LAUNCHES = 0
+    st = L.odometry.init(cfg.lidar, dt, pose0=src.pose0)
+    sharded = []
+    with recorded_knn_calls(calls):
+        for sw, g in zip(sweeps, src.guesses):
+            st, res = step(st, sw, g)
+            sharded.append((st, res))
+    launches = K.KERNEL_LAUNCHES
+    st = L.odometry.init(cfg.lidar, dt, pose0=src.pose0)
+    plain = []
+    for sw, g in zip(sweeps, src.guesses):
+        st, res = L.odometry.step(cfg.lidar, st, sw, g)
+        plain.append((st, res))
+    equal = _leaves_equal(sharded, plain)
+    nums = {"model_axis": mesh.size(PM.MODEL_AXIS), "sweeps": 2,
+            "launches": launches, "bit_equal_to_unsharded": equal,
+            "n_corr": float(sharded[1][1].n_corr)}
+    check(equal, "the size-1 sharded LiDAR step differs from odometry.step")
+    check(launches > 0, "the sharded LiDAR step launched no k-NN kernel")
+    return nums
+
+
+def chain_problem(dev, seed: int = 0):
+    """tests/test_windows_sharding.py's chain: a smooth trajectory, noisy
+    odometry between its CHAIN_N states, noisy initial estimates (f32)."""
+    rng = np.random.default_rng(seed)
+    ts = np.arange(CHAIN_N) * 0.1
+    q = lie.so3_exp_quat(torch.as_tensor(
+        np.stack([0.02 * ts, 0.01 * np.sin(ts), 0.3 * ts], -1)))
+    p = torch.as_tensor(np.stack([2.0 * ts, np.sin(0.5 * ts), 0.1 * ts], -1))
+    gt = torch.cat([q, p], -1)
+    meas = lie.pose_retract(lie.pose_between(gt[:-1], gt[1:]),
+                            torch.as_tensor(rng.normal(0, 0.01,
+                                                       (CHAIN_N - 1, 6))))
+    x0 = lie.pose_retract(gt, torch.as_tensor(rng.normal(0, 0.05,
+                                                         (CHAIN_N, 6))))
+    infos = torch.eye(6, dtype=torch.float64).expand(CHAIN_N - 1, 6, 6) * 100
+    return tuple(v.to(dev, torch.float32) for v in
+                 (x0, meas, infos, gt[0], torch.eye(6, dtype=torch.float64)
+                  * 1e4))
+
+
+def drive_windows(mesh, dev) -> dict:
+    """``windows.solve_sharded`` over the mesh's data axis against
+    ``solve_sequential``, on the card; the tolerance of
+    tests/test_windows_sharding.py."""
+    args = chain_problem(dev)
+    seq = PW.solve_sequential(*args, iters=5)
+    shd = PW.solve_sharded(mesh, PM.DATA_AXIS, *args, iters=5)
+    d_pos = float((shd[:, 4:] - seq[:, 4:]).abs().max())
+    dots = float((shd[:, :4] * seq[:, :4]).sum(-1).abs().min())
+    nums = {"windows": mesh.size(PM.DATA_AXIS), "states": CHAIN_N,
+            "max_pos_err_m": d_pos, "min_quat_dot": dots}
+    check(bool(torch.isfinite(shd).all()), "non-finite window solution")
+    check(d_pos <= 2e-3, f"window solve positions differ by {d_pos} m")
+    check(dots > 1.0 - 1e-5, f"window solve quaternion dot {dots}")
+    return nums
+
+
+def drive_lanes_and_collectives(cfg: VIL.VilConfig, src: LaneSource,
+                                dev) -> dict:
+    """Phase 9 on a one-rank mesh of the card (NCCL; gloo for the CPU):
+    the data axis (lanes), the model axis (sharded LiDAR step, whose k-NN
+    calls are returned for the kernel check) and the window axis."""
+    t0 = time.perf_counter()
+    mesh = PM.make_mesh(n_data=1, n_model=1, devices=dev)
+    calls: list = []
+    nums = {"backend": dist.get_backend(),
+            "lanes": drive_lanes(cfg, src, mesh),
+            "model": drive_sharded_lidar(cfg, src, mesh, calls),
+            "windows": drive_windows(mesh, dev)}
+    nums["wall_s"] = time.perf_counter() - t0
+    print("  " + json.dumps(nums), flush=True)
+    return {"numbers": nums, "knn_calls": calls}
+
+
 def main() -> int:
     # Phase 1: the device.
     if not torch.cuda.is_available():
@@ -1304,6 +1527,7 @@ def main() -> int:
     # Phase 6: CPU cross-check of the image-driven run.
     print(f"[cross-check] first {CROSS_SWEEPS} sweeps on the CPU", flush=True)
     cross_check(cfg, fcfg, x, (full["frames"], full["result"]))
+    src9 = lane_source(x, full["result"])
     del full, x, sc
 
     # Phase 7: the degeneracy-experiment grid.
@@ -1319,10 +1543,21 @@ def main() -> int:
     bag = replay_bag(dev)
     max_err = max(max_err, bag["max_err"])
 
+    # Phase 9: lanes and collectives on a one-rank mesh of the card.
+    print(f"[lanes and collectives] {LANES} lanes of phase 4's first "
+          f"{LANE_EVENTS} events -> batched_fusion_run; sharded LiDAR step, "
+          f"window solve on a one-rank NCCL mesh", flush=True)
+    par = drive_lanes_and_collectives(cfg, src9, dev)
+    print(f"[kernel vs plain on the sharded step] "
+          f"{len(par['knn_calls'])} k-NN calls", flush=True)
+    max_err = max(max_err, check_drive_knn(par.pop("knn_calls")))
+    dist.destroy_process_group()
+
     launches = {"town_image_drive": launches_4}
     launches.update({f"experiments_{k}": c["launches"]
                      for k, c in exp["cells"].items()})
     launches["bag_replay"] = bag["numbers"]["launches"]
+    launches["sharded_lidar_step"] = par["numbers"]["model"]["launches"]
     print(f"card: {card}")
     print(kernels_line(card, launches, max_err, shapes,
                        exp["knn_calls_per_sweep"],

@@ -9,7 +9,8 @@
   fusion engine in float32, in another order of operations).
 - ``record`` → ``run --bag`` and ``run --scenario`` run in-process on the
   CPU (``--device cpu``) and print the JAX CLI's keys; ``--model-devices 2``
-  and ``bench`` raise; ``experiments`` builds the JAX grids' spec lists.
+  in a world of one process and ``bench`` raise; ``experiments`` builds
+  the JAX grids' spec lists.
 """
 
 import dataclasses
@@ -272,13 +273,19 @@ def test_run_scenario_on_cpu(tmp_path, capsys):
     assert out["fused_ate_rmse_m"] < 0.1
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["run", "--model-devices", "2", "--device", "cpu"], "item 9"),
-    (["run", "--bag", "x.bag", "--model-devices", "2"], "item 9"),
-    (["bench"], "item 8"),
+@pytest.mark.parametrize("argv, error, match", [
+    # --model-devices N > 1 in a world of one process: refused, with the
+    # launcher named (tests/test_torch_multihost.py runs it in a world of 2).
+    pytest.param(["run", "--model-devices", "2", "--device", "cpu"],
+                 RuntimeError, "torchrun --nproc-per-node 2",
+                 id="argv0-item 9"),
+    pytest.param(["run", "--bag", "x.bag", "--model-devices", "2"],
+                 RuntimeError, "world of 2 processes", id="argv1-item 9"),
+    pytest.param(["bench"], NotImplementedError, "item 8",
+                 id="argv2-item 8"),
 ])
-def test_unported_commands_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_commands_raise(argv, error, match):
+    with pytest.raises(error, match=match):
         TCLI.main(argv)
 
 

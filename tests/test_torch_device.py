@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from vil_sensor_fusion_tpu_torch import DEFAULT_DEVICE, _tree, convert
+from vil_sensor_fusion_tpu_torch.core import lie
 from vil_sensor_fusion_tpu_torch.data import raycast, scenarios
 from vil_sensor_fusion_tpu_torch.frontends.lidar import odometry, voxelmap
 from vil_sensor_fusion_tpu_torch.frontends.vio import frontend, synthetic
@@ -25,6 +26,8 @@ ENTRY_POINTS = {
         synthetic.imu_windows_for_frames(scenarios._town_traj(),
                                          np.array([0.05, 0.1]), 200.0)),
     "convert.to_torch": lambda: convert.to_torch(np.zeros(3)),
+    "lie.quat_identity": lambda: lie.quat_identity(),
+    "lie.pose_identity": lambda: lie.pose_identity(),
 }
 
 

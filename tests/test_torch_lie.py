@@ -94,5 +94,5 @@ def test_identity_constructors_follow_dtype_and_device():
     p = TL.pose_identity(torch.float64, "cpu")
     assert p.dtype == torch.float64 and p.device.type == "cpu"
     np.testing.assert_array_equal(p.numpy(), np.asarray(JL.pose_identity()))
-    np.testing.assert_array_equal(TL.quat_identity().numpy(),
+    np.testing.assert_array_equal(TL.quat_identity(device="cpu").numpy(),
                                   np.asarray(JL.quat_identity()))

@@ -14,9 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import DEFAULT_DEVICE
+
 
 def linspace0(stop: float, num: int, dtype=torch.float64,
-              device=None) -> torch.Tensor:
+              device=DEFAULT_DEVICE) -> torch.Tensor:
     """``jnp.linspace(0.0, stop, num)`` (endpoint included) in float64,
     cast to ``dtype`` on ``device``."""
     if num == 1:

@@ -23,10 +23,18 @@ output keys:
       the degeneracy-experiment grid with per-run reports
 
 ``--device`` (default ``cuda``) names the device the subcommands that
-compute run on; ``--device cpu`` runs them on the host. Not ported yet:
-``run --model-devices N`` for N > 1 (the model-parallel ICP, ROADMAP.md
-Queue 1 item 9) and ``bench`` (the H100 twin of ``bench.py``, item 8);
-both raise.
+compute run on; ``--device cpu`` runs them on the host.
+
+``run --model-devices N`` spreads one sequence's scan-to-map ICP over N
+ranks (``parallel.ops.make_sharded_register``); N > 1 needs a
+``torch.distributed`` world of N processes, one card each:
+
+  torchrun --nproc-per-node N -m vil_sensor_fusion_tpu_torch.cli run \
+      --model-devices N ...
+
+Every rank runs the whole command; rank 0 alone prints the JSON and
+writes the checkpoint. Not ported yet: ``bench`` (the H100 twin of
+``bench.py``, ROADMAP.md Queue 1); it raises.
 """
 
 from __future__ import annotations
@@ -91,11 +99,35 @@ def _resolve_run_config(args, default_rig=None):
     return cfg, fe_cfg
 
 
-def _refuse_model_devices(args):
-    if args.model_devices > 1:
-        raise NotImplementedError(
-            "--model-devices > 1 (the model-parallel ICP of parallel/) is "
-            "not ported yet: ROADMAP.md Queue 1 item 9")
+def _model_mesh(args):
+    """The mesh for ``--model-devices N`` (one sequence's ICP over N ranks),
+    or None for N = 1. N > 1 needs a world of exactly N processes: one a
+    caller started, or torchrun's (``env://``)."""
+    n = args.model_devices
+    if n <= 1:
+        return None
+    import torch.distributed as dist
+
+    from .parallel import mesh as PM
+
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(PM.backend_for(args.device),
+                                init_method="env://")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise RuntimeError(
+            f"--model-devices {n} needs a torch.distributed world of {n} "
+            f"processes, one per device; this one has {world}. Launch it "
+            f"with torchrun --nproc-per-node {n} -m "
+            f"vil_sensor_fusion_tpu_torch.cli run --model-devices {n} ...")
+    return PM.make_mesh(n_data=1, n_model=n, devices=args.device)
+
+
+def _writes(mesh) -> bool:
+    """Whether this process prints and saves: rank 0 of a mesh's world."""
+    import torch.distributed as dist
+
+    return mesh is None or dist.get_rank() == 0
 
 
 def _gate_numbers(res) -> dict:
@@ -138,13 +170,15 @@ def cmd_record(args):
     }, indent=2))
 
 
-def _run_bag(args):
+def _run_bag(args, mesh):
     from .fusion import vil
 
     cfg, fe_cfg = _resolve_run_config(args)
     es, res, ba = vil.run_vil_from_bag(
         args.bag, cfg=cfg, fe_cfg=fe_cfg,
-        topics=dict(gt_topic="/gt/odometry"), device=args.device)
+        topics=dict(gt_topic="/gt/odometry"), device=args.device, mesh=mesh)
+    if not _writes(mesh):
+        return
     out = {"bag": args.bag, "events": int(res.timeline.times.shape[0])}
     out.update(_gate_numbers(res))
     _save_checkpoint(args, es, out)
@@ -160,9 +194,9 @@ def _run_bag(args):
 
 
 def cmd_run(args):
-    _refuse_model_devices(args)
+    mesh = _model_mesh(args)
     if args.bag:
-        return _run_bag(args)
+        return _run_bag(args, mesh)
 
     from torch.func import vmap
 
@@ -189,7 +223,10 @@ def cmd_run(args):
         L.odometry.init(cfg.lidar, dtype, pose0=pose0),
         lidar_guess_from_vio_idx=sc.lidar_guess_idx,
         engine_state=fu.init(cfg.fusion, pose0, vel0, zeros6, t0),
+        mesh=mesh,
     )
+    if not _writes(mesh):
+        return
     gt = vmap(sc.traj.pose_fn)(res.timeline.times)
     out = {
         "scenario": args.scenario,
@@ -319,7 +356,8 @@ def main(argv=None):
                          "vio/frontend/lidar/filter/sensors/smoother")
     pr.add_argument("--model-devices", type=int, default=1,
                     help="spread one sequence's ICP registration over N "
-                         "devices (not ported yet: N > 1 raises)")
+                         "devices; N > 1 runs under torchrun "
+                         "--nproc-per-node N")
     _device_arg(pr)
     pr.set_defaults(fn=cmd_run)
 

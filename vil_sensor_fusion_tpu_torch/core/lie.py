@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import DEFAULT_DEVICE
+
 _EPS = 1e-8
 
 
@@ -36,7 +38,7 @@ def _eye3_like(K: torch.Tensor) -> torch.Tensor:
 # Quaternions (w, x, y, z)
 # ---------------------------------------------------------------------------
 
-def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+def quat_identity(dtype=torch.float32, device=DEFAULT_DEVICE) -> torch.Tensor:
     return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
 
 
@@ -229,7 +231,7 @@ def so3_right_jacobian_inv(theta: torch.Tensor) -> torch.Tensor:
 # SE(3): pose = (q[4], t[3]) packed as a 7-vector [qw qx qy qz tx ty tz]
 # ---------------------------------------------------------------------------
 
-def pose_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+def pose_identity(dtype=torch.float32, device=DEFAULT_DEVICE) -> torch.Tensor:
     return torch.tensor([1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], dtype=dtype,
                         device=device)
 

@@ -72,6 +72,10 @@ def preintegrate(
     cov = torch.zeros((9, 9), dtype=dtype, device=device)
     dR_dbg = dv_dba = dv_dbg = dp_dba = dp_dbg = Z3
     dt_sum = torch.zeros((), dtype=dtype, device=device)
+    # The integration noise's 9×9 block pattern, scaled by dt per sample
+    # (a product, not a write into a slice, so the loop maps over lanes).
+    Q_int_unit = torch.zeros((9, 9), dtype=dtype, device=device)
+    Q_int_unit[3:6, 3:6] = I3 * sig_int
 
     for k in range(accel.shape[0]):
         dt = dts[k]
@@ -105,9 +109,7 @@ def preintegrate(
             torch.cat([I3 * (sig_g / dt), Z3], dim=1),
             torch.cat([Z3, I3 * (sig_a / dt)], dim=1),
         ], dim=0)
-        Q_int = torch.zeros((9, 9), dtype=dtype, device=device)
-        Q_int[3:6, 3:6] = I3 * sig_int * dt
-        cov_new = A @ cov @ A.T + B @ Q_in @ B.T + Q_int
+        cov_new = A @ cov @ A.T + B @ Q_in @ B.T + Q_int_unit * dt
 
         dR_dbg_new = dRk.T @ dR_dbg - Jr * dt
         dv_dba_new = dv_dba - R * dt
@@ -239,8 +241,13 @@ def combined_covariance_15(pim: PreintegratedImu,
     dt = torch.clamp(pim.delta_t, min=1e-12)[..., None, None]
     batch = pim.cov.shape[:-2]
     I3 = torch.eye(3, dtype=dtype, device=device)
-    cov = torch.zeros(batch + (15, 15), dtype=dtype, device=device)
-    cov[..., :9, :9] = pim.cov
-    cov[..., 9:12, 9:12] = I3 * params.cov_bias_acc * dt
-    cov[..., 12:15, 12:15] = I3 * params.cov_bias_omega * dt
-    return cov
+
+    def z(r, c):
+        return torch.zeros(batch + (r, c), dtype=dtype, device=device)
+
+    # Assembled by concatenation, not slice writes, so it maps over lanes.
+    return torch.cat([
+        torch.cat([pim.cov, z(9, 6)], dim=-1),
+        torch.cat([z(3, 9), I3 * params.cov_bias_acc * dt, z(3, 3)], dim=-1),
+        torch.cat([z(3, 12), I3 * params.cov_bias_omega * dt], dim=-1),
+    ], dim=-2)

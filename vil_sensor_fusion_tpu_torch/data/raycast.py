@@ -282,7 +282,7 @@ def render_camera_series(world: World, poses_wc: torch.Tensor, cam,
                         for p in poses_wc])
 
 
-def _ray_dirs(dtype, device=None) -> torch.Tensor:
+def _ray_dirs(dtype, device=DEFAULT_DEVICE) -> torch.Tensor:
     """(R, A, 3) unit ray directions in the sensor frame (VLP-16 grid)."""
     elev = torch.deg2rad(torch.as_tensor(VLP16_ELEVATIONS_DEG, dtype=dtype,
                                          device=device))

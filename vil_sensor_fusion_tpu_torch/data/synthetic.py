@@ -1,7 +1,7 @@
 """Synthetic sensor streams with exact ground truth.
 
 Port of ``vil_sensor_fusion_tpu/data/synthetic.py`` (``trajectory``,
-``sample_imu``, ``sample_odometry``). Trajectories
+``circle``, ``sample_imu``, ``sample_odometry``). Trajectories
 are smooth functions of a scalar time tensor; velocity, acceleration and
 body rate come from forward-mode autodiff (``torch.func.jvp`` along the
 scalar time, which is the ``jax.jacfwd`` of a scalar-input function), and
@@ -76,6 +76,25 @@ def trajectory(pos_fn: Callable, rot_fn: Callable) -> Trajectory:
 
     return Trajectory(in_f64(pose_fn), in_f64(vel_fn), in_f64(acc_fn),
                       in_f64(omega_fn))
+
+
+def circle(radius: float = 20.0, period: float = 30.0,
+           z_amp: float = 0.5, z_period: float = 7.0) -> Trajectory:
+    """Car driving a circle with gentle height oscillation, yaw tangent to
+    the path."""
+    w = 2.0 * torch.pi / period
+    wz = 2.0 * torch.pi / z_period
+
+    def pos_fn(t):
+        return torch.stack([radius * torch.cos(w * t),
+                            radius * torch.sin(w * t),
+                            z_amp * torch.sin(wz * t)])
+
+    def rot_fn(t):
+        yaw = w * t + torch.pi / 2.0  # tangent direction
+        return lie.so3_exp(torch.stack([0.0 * t, 0.0 * t, yaw]))
+
+    return trajectory(pos_fn, rot_fn)
 
 
 def _normal(shape, generator: torch.Generator, like: torch.Tensor):

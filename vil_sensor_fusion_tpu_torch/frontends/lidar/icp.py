@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..._linspace import linspace0
 from ...core import lie
@@ -236,6 +237,7 @@ def register(
     map_corners: torch.Tensor, map_corner_mask: torch.Tensor,
     map_surfs: torch.Tensor, map_surf_mask: torch.Tensor,
     cfg: IcpConfig = IcpConfig(),
+    group=None,
 ) -> IcpResult:
     """Scan-to-map registration: ``ceil(iters/fit_every)`` correspondence
     rounds (KNN + line/plane fits + one 6×6 eigendecomposition), each
@@ -243,7 +245,25 @@ def register(
 
     With ``final_refresh=False`` the reported Hessian and cost are those of
     the last inner step, evaluated at the pose one update before the final
-    one (stale by one, exactly as the JAX version)."""
+    one (stale by one, exactly as the JAX version).
+
+    ``group``: a ``torch.distributed`` process group over which the query
+    point sets (corners, surfs and their masks) are sharded, the map
+    replicated — the counterpart of the JAX version's ``axis_name``. The
+    partial normal equations (H, g, cost) are all-reduced over it every GN
+    step and ``n_corr`` at the end, so every rank applies the same global
+    update and returns the same result."""
+
+    def _reduce(*xs):
+        if group is None:
+            return xs
+        flat = torch.cat([x.reshape(-1) for x in xs])
+        dist.all_reduce(flat, group=group)
+        out, o = [], 0
+        for x in xs:
+            out.append(flat[o:o + x.numel()].reshape(x.shape))
+            o += x.numel()
+        return tuple(out)
 
     def do_fits(pose):
         lf = line_fits(pose, corners, corner_mask, map_corners,
@@ -256,7 +276,7 @@ def register(
         rp, Jp, wp = plane_residuals(pose, surfs, *pf)
         Hl, gl, cl = accumulate_normal_eqs(rl, Jl, wl)
         Hp, gp, cp = accumulate_normal_eqs(rp, Jp, wp)
-        return Hl + Hp, gl + gp, cl + cp
+        return _reduce(Hl + Hp, gl + gp, cl + cp)
 
     dtype, device = pose0.dtype, pose0.device
     pose = pose0
@@ -299,9 +319,11 @@ def register(
         rp, Jp, wp = plane_residuals(pose, surfs, *pf)
         Hl, _, cl = accumulate_normal_eqs(rl, Jl, wl)
         Hp, _, cp = accumulate_normal_eqs(rp, Jp, wp)
-        hessian, cost, n_corr = Hl + Hp, cl + cp, torch.sum(wl) + torch.sum(wp)
+        hessian, cost, n_corr = _reduce(Hl + Hp, cl + cp,
+                                        torch.sum(wl) + torch.sum(wp))
     else:
+        # H and cost come from normal_eqs, already reduced.
         hessian = H
-        n_corr = torch.sum(lf[2]) + torch.sum(pf[2])
+        (n_corr,) = _reduce(torch.sum(lf[2]) + torch.sum(pf[2]))
     return IcpResult(pose=pose, hessian=hessian, cost=cost, n_corr=n_corr,
                      degenerate=degen)

@@ -138,10 +138,16 @@ def step(
     state: LidarOdomState,
     sweep: Sweep,
     pose_guess: torch.Tensor,
+    register_fn=None,
     compute_cov: bool = True,
 ) -> tuple[LidarOdomState, LidarOdomResult]:
     """Process one sweep. ``pose_guess`` is the motion prior (absolute, or
-    relative in guess_is_delta mode)."""
+    relative in guess_is_delta mode).
+
+    ``register_fn``: optional scan-to-map registration with
+    ``icp.register``'s positional signature (pose0, q_c, m_c, q_s, m_s,
+    map_c, map_cm, map_s, map_sm) → IcpResult — the hook the model-parallel
+    path uses (``parallel.ops.make_sharded_register``)."""
     dtype = state.pose.dtype
     has_map = state.initialized > 0
     delta_guess = pose_guess
@@ -188,11 +194,14 @@ def step(
                       cfg.submap_radius, approx=cfg.submap_approx)
     sub_s = vm.submap(state.surf_map, center, cfg.submap_surfs,
                       cfg.submap_radius, approx=cfg.submap_approx)
-    res = I.register(
+    if register_fn is None:
+        def register_fn(*a):
+            return I.register(*a, cfg.icp)
+
+    res = register_fn(
         pose_init,
         q_corners, q_corner_mask, q_surfs, q_surf_mask,
         sub_c.points, sub_c.mask, sub_s.points, sub_s.mask,
-        cfg.icp,
     )
     pose = torch.where(has_map, res.pose, pose_guess)
     if not cfg.two_stage:
@@ -239,15 +248,17 @@ def run(
     state: LidarOdomState,
     sweeps: Sweep,                 # stacked (T, R, A, ·)
     pose_guesses: torch.Tensor,    # (T, 7) per-sweep priors
+    register_fn=None,
 ) -> tuple[LidarOdomState, LidarOdomResult]:
     """Loop over a whole drive; results stacked along a leading T axis. The
-    covariance (σ²H⁻¹) is computed once, batched over all T sweeps."""
+    covariance (σ²H⁻¹) is computed once, batched over all T sweeps.
+    ``register_fn`` as in :func:`step`."""
     init0 = state.initialized
     outs = []
     for t in range(pose_guesses.shape[0]):
         sweep = Sweep(*(x[t] for x in sweeps))
         state, res = step(cfg, state, sweep, pose_guesses[t],
-                          compute_cov=False)
+                          register_fn=register_fn, compute_cov=False)
         outs.append(res)
     res = _tree.tree_map(lambda *xs: torch.stack(xs, dim=0), *outs)
     T = res.pose.shape[0]

@@ -12,10 +12,12 @@ from .engine import (
     init,
     merge_timeline,
     run,
+    run_lanes,
     step,
 )
 
 __all__ = [
     "engine", "vil", "EngineState", "FusedOutput", "FusionConfig",
-    "SensorSpec", "Timeline", "init", "merge_timeline", "run", "step",
+    "SensorSpec", "Timeline", "init", "merge_timeline", "run", "run_lanes",
+    "step",
 ]

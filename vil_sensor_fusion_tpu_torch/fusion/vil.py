@@ -15,9 +15,11 @@ mode: ``run_vil`` over array streams, and the raw-sensor bag entry points
 sweeps → LiDAR odometry, bag → images → tracker → EKF, gate, fusion). With
 ``LidarOdomConfig.emit_dists`` the LiDAR stage also returns the
 perturbation-sweep distances (``lidar_out.dists``) that the experiment
-harness (``eval/experiments.py``) turns into dist slopes. Not ported yet:
-the direct photometric VIO (``VioConfig.use_photometric``,
-``build_photo_inputs_from_bag``) and the model-parallel ``mesh``.
+harness (``eval/experiments.py``) turns into dist slopes. A ``mesh``
+spreads the scan-to-map registration over the ranks of its model axis
+(``parallel.ops.make_sharded_register``). Not ported yet: the direct
+photometric VIO (``VioConfig.use_photometric``,
+``build_photo_inputs_from_bag``).
 """
 
 from __future__ import annotations
@@ -85,6 +87,9 @@ def run_vil(
     lidar_guess_from_vio_idx: np.ndarray | None = None,
     # Fusion init:
     engine_state: E.EngineState = None,
+    # Model parallelism: a parallel.mesh.Mesh whose model axis spreads the
+    # scan-to-map registration's points over ranks.
+    mesh=None,
 ) -> tuple[E.EngineState, VilResult]:
     """Run the full system over one sequence, on the device the inputs
     live on. The front-ends run first (they are causal); their odometry
@@ -93,13 +98,23 @@ def run_vil(
     LiDAR registration priors come either from ``lidar_pose_guesses`` or
     from the VIO poses at the sweeps' times (``lidar_guess_from_vio_idx``);
     in ``guess_is_delta`` mode they are the VIO's relative motion between
-    consecutive sweeps, with sweep 0 relative to the VIO initial pose."""
+    consecutive sweeps, with sweep 0 relative to the VIO initial pose.
+
+    ``mesh``: a ``parallel.mesh.Mesh`` with a model axis of size N spreads
+    ONE sequence's scan-to-map ICP over N ranks (``cli run
+    --model-devices N``); every rank runs this call on the same inputs and
+    gets the same result."""
     _precision.require_full_f32()
     # --- Stage 1: VIO ------------------------------------------------------
     _refuse_photometric(cfg)
     _, vio_out = V.run(cfg.vio, vio_state, vio_frames)
 
     # --- Stage 2: LiDAR odometry -------------------------------------------
+    register_fn = None
+    if mesh is not None:
+        from ..parallel import ops as POPS
+
+        register_fn = POPS.make_sharded_register(mesh, cfg.lidar.icp)
     if lidar_guess_from_vio_idx is not None:
         sel_idx = torch.as_tensor(np.asarray(lidar_guess_from_vio_idx),
                                   device=vio_out.pose.device)
@@ -110,7 +125,8 @@ def run_vil(
         else:
             lidar_pose_guesses = vio_sel
     _, lidar_out = L.odometry.run(cfg.lidar, lidar_state, sweeps,
-                                  lidar_pose_guesses)
+                                  lidar_pose_guesses,
+                                  register_fn=register_fn)
 
     # --- Stage 3: degeneracy gate on the ICP Hessian -----------------------
     gate_res = DG.logdet_gate(lidar_out.hessian, cfg.gate,
@@ -192,13 +208,15 @@ def run_vil_from_bag(
     sweep_stride: int = 4,
     dtype=torch.float32,
     device=DEFAULT_DEVICE,
+    mesh=None,
 ):
     """Replay a raw-sensor bag through the FULL stack on ``device`` — bag →
     organized sweeps → LiDAR odometry, bag → images → tracker → EKF,
     degeneracy gate, fusion — one call reproducing fusion_carla.launch's
     job (gtsam_fusion/launch/fusion_carla.launch:13-97).
 
-    Returns (engine_state, VilResult, BagArrays)."""
+    ``mesh`` as in :func:`run_vil`. Returns (engine_state, VilResult,
+    BagArrays)."""
     cfg = cfg or VilConfig()
     _refuse_photometric(cfg)
     if pose_ic is None:
@@ -233,5 +251,5 @@ def run_vil_from_bag(
         cfg, tensor(ba.imu_times), tensor(ba.imu_accel), tensor(ba.imu_gyro),
         ba.cam_times, frames, vio_state,
         ba.lidar_times, ba.sweeps, lidar_state,
-        lidar_guess_from_vio_idx=guess_idx, engine_state=es)
+        lidar_guess_from_vio_idx=guess_idx, engine_state=es, mesh=mesh)
     return es, res, ba

@@ -347,10 +347,9 @@ def add_keyframe(cfg: SmootherConfig, s: SmootherState, t_new,
                                 vels=_shift(st.vels, vel_new),
                                 biases=_shift(st.biases, bias_prev))
 
-    prior_H_new = torch.zeros((D, D), dtype=dtype, device=device)
-    prior_H_new[:D - S, :D - S] = Sc
-    prior_g_new = torch.zeros((D,), dtype=dtype, device=device)
-    prior_g_new[:D - S] = gs
+    # Zero-padded, not written into slices, so the eviction maps over lanes.
+    prior_H_new = torch.nn.functional.pad(Sc, (0, S, 0, S))
+    prior_g_new = torch.nn.functional.pad(gs, (0, S))
 
     btw_i_new = s.btw_i - 1
     una_slot_new = s.una_slot - 1
