@@ -76,6 +76,23 @@ result line:
    with the kernel against ``knn_torch`` on each of its k-NN calls; and
    ``parallel.windows.solve_sharded`` against ``solve_sequential`` on a
    32-state chain (tests/test_windows_sharding.py's tolerance).
+10. Photometric bag replay and the full-batch oracle: phase 8's bag again
+   through ``cli.main(["run", "--bag", ..., "--config", <carla_full.yaml
+   with vio.use_photometric: true, written under build/>])``: images →
+   pyramids and Shi-Tomasi candidates → the direct photometric EKF (no
+   KLT), LiDAR odometry, gate, fusion, timed by stage. Checks: finite fused
+   poses and VIO covariances with positive diagonals, VIO ATE < 0.5 m
+   (``tests/test_photometric.py``'s bound), fused ATE < 1.0 m, live share
+   (slots live and passing the χ² gate) over frames 1-19 > 0.5, templates
+   captured, keep share > 0.5, k-NN launches equal to phase 8's CPU count,
+   the kernel against ``knn_torch`` on every call. Then the photometric VIO
+   stage alone on the CPU over the first 5 frames from the card's inputs,
+   within ``PHOTO_CROSS_TOL`` (the first frame whose χ² verdicts differ is
+   printed); then ``graph.batch.solve_batch`` in float64 on the card
+   against the CPU on ``tests/test_batch_oracle.py``'s circle problem at
+   4 s (poses within 1e-9 m, ``n_between`` equal, cost within 1e-9
+   relative), and the fixed-lag ``fusion.run`` on the card over its first
+   1.5 s against the oracle of that timeline (the test's bounds).
 
 The last two lines are a JSON object describing the kernels (one sweep's
 sums in ms: ``ms`` the wrapper's call time, ``device_ms`` the kernel's
@@ -623,9 +640,11 @@ def timed(timer: U.StageTimer, name: str):
 
 def timed_run_vil_stages(timer: U.StageTimer):
     """Time the four stages inside ``run_vil`` by wrapping the functions it
-    calls (the VIO run, LiDAR odometry, the gate and the fusion engine);
-    what is left of its wall is the priors and the timeline merge."""
+    calls (the VIO run, geometric or photometric, LiDAR odometry, the gate
+    and the fusion engine); what is left of its wall is the priors and the
+    timeline merge."""
     return wrapped((VIL.V, "run", timed(timer, "vio")),
+                   (VIL.PH, "run", timed(timer, "vio")),
                    (VIL.L.odometry, "run", timed(timer, "lidar")),
                    (VIL.DG, "logdet_gate", timed(timer, "gate")),
                    (VIL.E, "run", timed(timer, "fusion")))
@@ -1114,14 +1133,15 @@ def record_bag(path: Path, dev) -> dict:
     return out
 
 
-def run_cli_bag(path: Path, ckpt: Path, dev, calls: list | None = None
-                ) -> dict:
-    """``cli.main(["run", "--bag", ..., "--config", carla_full.yaml,
-    "--checkpoint", ..., "--device", dev])``, as a user runs it, timed by stage
-    (ingest with organize inside it, the tracker, and run_vil's four
-    stages); with ``calls``, the inputs of every k-NN call are kept.
-    Returns the CLI's JSON, the wall, the stage seconds, the kernel's
-    launches and what ``run_vil_from_bag`` returned."""
+def run_cli_bag(path: Path, ckpt: Path, dev, calls: list | None = None,
+                config: Path = FULL_CONFIG) -> dict:
+    """``cli.main(["run", "--bag", ..., "--config", config, "--checkpoint",
+    ..., "--device", dev])``, as a user runs it, timed by stage (ingest with
+    organize inside it, the tracker or, in photometric mode, the batched
+    front-end, and run_vil's four stages); with ``calls``, the inputs of
+    every k-NN call are kept. Returns the CLI's JSON, the wall, the stage
+    seconds, the kernel's launches and what ``run_vil_from_bag``
+    returned."""
     timer = U.StageTimer()
     kept = {}
 
@@ -1131,7 +1151,7 @@ def run_cli_bag(path: Path, ckpt: Path, dev, calls: list | None = None
             return out
         return run
     stdout = io.StringIO()
-    argv = ["run", "--bag", str(path), "--config", str(FULL_CONFIG),
+    argv = ["run", "--bag", str(path), "--config", str(config),
             "--checkpoint", str(ckpt), "--device", str(dev)]
     sync = _sync_of(dev)
     sync()
@@ -1141,6 +1161,8 @@ def run_cli_bag(path: Path, ckpt: Path, dev, calls: list | None = None
                  (IG, "load_bag", timed(timer, "ingest")),
                  (IG.RI, "organize", timed(timer, "organize")),
                  (VIL, "build_vio_frames_from_bag", timed(timer, "tracker")),
+                 (VIL, "build_photo_inputs_from_bag",
+                  timed(timer, "frontend")),
                  (VIL, "run_vil", timed(timer, "run_vil"))), \
             timed_run_vil_stages(timer), \
             (recorded_knn_calls(calls) if calls is not None
@@ -1190,89 +1212,88 @@ def knn_calls_per_sweep_cpu(cfg: VIL.VilConfig, ba_cpu: IG.BagArrays,
     return len(calls) // n
 
 
-def replay_bag(dev) -> dict:
-    """Phase 8: record the bag, replay it through the CLI on the card, and
-    check the run: the CLI's outputs, the k-NN launches against a CPU run's
-    count, the kernel against knn_torch on every k-NN call of the run, the
-    checkpoint against the final engine state, and the card's ingestion
-    against the CPU's."""
+def replay_bag(dev, tmp: Path) -> dict:
+    """Phase 8: record the bag into ``tmp`` (where phase 10 replays it
+    again), replay it through the CLI on the card, and check the run: the
+    CLI's outputs, the k-NN launches against a CPU run's count, the kernel
+    against knn_torch on every k-NN call of the run, the checkpoint against
+    the final engine state, and the card's ingestion against the CPU's."""
     cfg = C.load(str(FULL_CONFIG)).vil()
-    (REPO / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        bag, ckpt = Path(tmp) / "town_full.bag", Path(tmp) / "engine.npz"
-        recorded = record_bag(bag, dev)
-        calls = []
-        run = run_cli_bag(bag, ckpt, dev, calls)
-        res, es, ba = run["res"], run["es"], run["ba"]
-        T = len(ba.lidar_times)
-        events = run["json"]["events"]
-        st = run["stage_s"]
-        nums = {
-            "cli": run["json"], "wall_s": run["wall_s"], "stage_s": st,
-            "events_per_s": events / run["wall_s"],
-            "tracker_run_vil_s": st["tracker"] + st["run_vil"],
-            "events_per_s_tracker_run_vil": events / (st["tracker"]
-                                                      + st["run_vil"]),
-            "launches": run["launches"], "sweeps": T,
-            "frames": len(ba.cam_times)}
-        per_sweep = {}
-        for q, t, _ in calls:
-            key = f"{q.shape[0]}x{t.shape[0]}"
-            per_sweep[key] = per_sweep.get(key, 0) + 1
-        nums["knn_calls_per_sweep"] = {k: v / T for k, v in per_sweep.items()}
-        print("  " + json.dumps(nums), flush=True)
-        out = run["json"]
-        fused = res.fused.poses.cpu().numpy()
-        want_T = round(BAG_DURATION * 10)
-        check(fused.shape == (events, 7) and T == want_T
-              and events == 3 * want_T,
-              f"bag replay: {T} sweeps, {events} events, fused {fused.shape}")
-        check(bool(np.isfinite(fused).all()), "bag replay: non-finite pose")
-        check(out["healthy_fraction"] == 1.0,
-              f"bag replay healthy share {out['healthy_fraction']}")
-        check(out["fused_ate_rmse_m"] < 1.0,
-              f"bag replay fused ATE {out['fused_ate_rmse_m']} m")
-        check(out["gate_keep_fraction"] > 0.5,
-              f"bag replay gate keep share {out['gate_keep_fraction']}")
+    bag, ckpt = tmp / "town_full.bag", tmp / "engine.npz"
+    recorded = record_bag(bag, dev)
+    calls = []
+    run = run_cli_bag(bag, ckpt, dev, calls)
+    res, es, ba = run["res"], run["es"], run["ba"]
+    T = len(ba.lidar_times)
+    events = run["json"]["events"]
+    st = run["stage_s"]
+    nums = {
+        "cli": run["json"], "wall_s": run["wall_s"], "stage_s": st,
+        "events_per_s": events / run["wall_s"],
+        "tracker_run_vil_s": st["tracker"] + st["run_vil"],
+        "events_per_s_tracker_run_vil": events / (st["tracker"]
+                                                  + st["run_vil"]),
+        "launches": run["launches"], "sweeps": T,
+        "frames": len(ba.cam_times)}
+    per_sweep = {}
+    for q, t, _ in calls:
+        key = f"{q.shape[0]}x{t.shape[0]}"
+        per_sweep[key] = per_sweep.get(key, 0) + 1
+    nums["knn_calls_per_sweep"] = {k: v / T for k, v in per_sweep.items()}
+    print("  " + json.dumps(nums), flush=True)
+    out = run["json"]
+    fused = res.fused.poses.cpu().numpy()
+    want_T = round(BAG_DURATION * 10)
+    check(fused.shape == (events, 7) and T == want_T
+          and events == 3 * want_T,
+          f"bag replay: {T} sweeps, {events} events, fused {fused.shape}")
+    check(bool(np.isfinite(fused).all()), "bag replay: non-finite pose")
+    check(out["healthy_fraction"] == 1.0,
+          f"bag replay healthy share {out['healthy_fraction']}")
+    check(out["fused_ate_rmse_m"] < 1.0,
+          f"bag replay fused ATE {out['fused_ate_rmse_m']} m")
+    check(out["gate_keep_fraction"] > 0.5,
+          f"bag replay gate keep share {out['gate_keep_fraction']}")
 
-        print(f"[kernel vs plain on the bag replay] its {len(calls)} k-NN "
-              f"calls", flush=True)
-        max_err = check_drive_knn(calls)
-        calls.clear()
+    print(f"[kernel vs plain on the bag replay] its {len(calls)} k-NN "
+          f"calls", flush=True)
+    max_err = check_drive_knn(calls)
+    calls.clear()
 
-        template = fu.init(cfg.fusion, lie.pose_identity(device=dev),
-                           torch.zeros(3, device=dev),
-                           torch.zeros(6, device=dev),
-                           torch.zeros((), device=dev))
-        back = U.restore(str(ckpt), template)
-        leaves = list(zip(_tree.tree_leaves(es), _tree.tree_leaves(back)))
-        check(type(back) is type(es) and all(
-            b.device == a.device and b.dtype == a.dtype and torch.equal(a, b)
-            for a, b in leaves),
-            "the checkpoint does not restore the final engine state")
-        print(f"  checkpoint: {len(leaves)} leaves restored into a fresh "
-              f"fusion.init template, equal bit for bit", flush=True)
+    template = fu.init(cfg.fusion, lie.pose_identity(device=dev),
+                       torch.zeros(3, device=dev),
+                       torch.zeros(6, device=dev),
+                       torch.zeros((), device=dev))
+    back = U.restore(str(ckpt), template)
+    leaves = list(zip(_tree.tree_leaves(es), _tree.tree_leaves(back)))
+    check(type(back) is type(es) and all(
+        b.device == a.device and b.dtype == a.dtype and torch.equal(a, b)
+        for a, b in leaves),
+        "the checkpoint does not restore the final engine state")
+    print(f"  checkpoint: {len(leaves)} leaves restored into a fresh "
+          f"fusion.init template, equal bit for bit", flush=True)
 
-        t0 = time.perf_counter()
-        ba_cpu = IG.load_bag(bag, gt_topic="/gt/odometry",
-                             device=torch.device("cpu"))
-        ingest = compare_ingest(ba, ba_cpu)
-        ingest["cpu_ingest_s"] = time.perf_counter() - t0
-        cpu_per_sweep = knn_calls_per_sweep_cpu(cfg, ba_cpu)
-        ingest["cpu_knn_calls_per_sweep"] = cpu_per_sweep
-        print("  ingest, card vs CPU: " + json.dumps(ingest), flush=True)
-        check(ingest["host_streams_equal"],
-              "the card's and the CPU's ingestion differ on a host stream")
-        check(ingest["cells_differ"] <= BAG_EDGE_CELLS,
-              f"{ingest['cells_differ']} sweep cells differ between the "
-              f"card's and the CPU's ingestion (> {BAG_EDGE_CELLS})")
-        check(ingest["max_rng_rel_err"] <= 1.2e-7,
-              f"ingested ranges differ by {ingest['max_rng_rel_err']}")
-        check(run["launches"] == cpu_per_sweep * T,
-              f"bag replay: {run['launches']} k-NN launches, want "
-              f"{cpu_per_sweep} per sweep ({cpu_per_sweep * T})")
+    t0 = time.perf_counter()
+    ba_cpu = IG.load_bag(bag, gt_topic="/gt/odometry",
+                         device=torch.device("cpu"))
+    ingest = compare_ingest(ba, ba_cpu)
+    ingest["cpu_ingest_s"] = time.perf_counter() - t0
+    cpu_per_sweep = knn_calls_per_sweep_cpu(cfg, ba_cpu)
+    ingest["cpu_knn_calls_per_sweep"] = cpu_per_sweep
+    print("  ingest, card vs CPU: " + json.dumps(ingest), flush=True)
+    check(ingest["host_streams_equal"],
+          "the card's and the CPU's ingestion differ on a host stream")
+    check(ingest["cells_differ"] <= BAG_EDGE_CELLS,
+          f"{ingest['cells_differ']} sweep cells differ between the "
+          f"card's and the CPU's ingestion (> {BAG_EDGE_CELLS})")
+    check(ingest["max_rng_rel_err"] <= 1.2e-7,
+          f"ingested ranges differ by {ingest['max_rng_rel_err']}")
+    check(run["launches"] == cpu_per_sweep * T,
+          f"bag replay: {run['launches']} k-NN launches, want "
+          f"{cpu_per_sweep} per sweep ({cpu_per_sweep * T})")
     return {"numbers": nums, "recorded": recorded, "ingest": ingest,
-            "max_err": max_err}
+            "max_err": max_err, "bag": bag,
+            "cpu_knn_calls_per_sweep": cpu_per_sweep}
 
 
 # --------------------------------------------------------------------------
@@ -1480,6 +1501,283 @@ def drive_lanes_and_collectives(cfg: VIL.VilConfig, src: LaneSource,
     return {"numbers": nums, "knn_calls": calls}
 
 
+# --------------------------------------------------------------------------
+# Phase 10: the photometric bag replay and the full-batch oracle
+# --------------------------------------------------------------------------
+
+PHOTO_CPU_FRAMES = 5    # frames of the photometric VIO rerun on the CPU
+# Phase 10 CPU rerun tolerances: the first 5 frames of the photometric VIO
+# stage from the card's own inputs. Measured with tools/cross_band.py
+# --photometric (H100 80GB HBM3, 700 W), card / CPU f32 against a float64
+# CPU run over these 5 frames: VIO 2.2e-5 / 3.5e-5 m and 4.1e-6 / 5.5e-6 in
+# the quaternion, covariances 9.4e-5 / 1.1e-4 (Frobenius, relative); card
+# against CPU f32 directly 2.2e-5 m, 4.5e-6, 1.3e-4. The card repeated
+# itself bit for bit, and the χ² verdicts and live slots of all 24 slots
+# were identical on the three runs over all 20 frames, so they are held
+# exactly and the rest to ~3.5-4.5 times the two bands together.
+PHOTO_CROSS_TOL = {
+    "vio_trans_err_m": 2e-4, "vio_quat_err": 4e-5, "cov_rel_err": 1e-3,
+    "chi2_mismatch": 0, "live_mismatch": 0,
+}
+ORACLE_DURATION = 4.0       # s: tests/test_batch_oracle.py's problem, cut
+FIXED_LAG_DURATION = 1.5    # s of it that the fixed-lag engine replays
+
+
+def photometric_config(tmp: Path) -> Path:
+    """``configs/carla_full.yaml`` with ``vio.use_photometric: true``,
+    written into ``tmp``."""
+    text = FULL_CONFIG.read_text()
+    check(text.count("use_photometric: false") == 1,
+          "carla_full.yaml has no single use_photometric switch")
+    path = tmp / "carla_full_photometric.yaml"
+    path.write_text(text.replace("use_photometric: false",
+                                 "use_photometric: true"))
+    return path
+
+
+@contextlib.contextmanager
+def recorded_photometric(rec: dict):
+    """Keep what the photometric VIO stage sees: ``photometric.run``'s
+    arguments and final state (``args``, ``final``), and per frame the
+    slots that enter the photometric update live (``live``) and its χ²
+    verdicts (``chi2``)."""
+    PH = VIL.PH
+    run, update = PH.run, PH.photometric_update
+    rec.update(live=[], chi2=[])
+
+    def run_(*a, **k):
+        rec["args"] = a
+        rec["final"], out = run(*a, **k)
+        return rec["final"], out
+
+    def update_(cfg, s, *a):
+        s_new, chi2_ok = update(cfg, s, *a)
+        rec["live"].append(s.lm_valid)
+        rec["chi2"].append(chi2_ok)
+        return s_new, chi2_ok
+    PH.run, PH.photometric_update = run_, update_
+    try:
+        yield
+    finally:
+        PH.run, PH.photometric_update = run, update
+
+
+def compare_photometric(a: tuple, b: tuple, n: int) -> dict:
+    """Largest differences between two photometric VIO runs ``(VioOutput,
+    recorded)`` over their first ``n`` frames, and the first frame whose
+    χ² verdicts or live slots differ (None if none does)."""
+    (oa, ra), (ob, rb) = a, b
+    np_ = lambda t: t.detach().cpu().double().numpy()  # noqa: E731
+    pa, pb = np_(oa.pose[:n]), np_(ob.pose[:n])
+    ca, cb = np_(oa.cov[:n]), np_(ob.cov[:n])
+    ga = np.stack([np_(c) for c in ra["chi2"][:n]])
+    gb = np.stack([np_(c) for c in rb["chi2"][:n]])
+    la = np.stack([np_(c) for c in ra["live"][:n]])
+    lb = np.stack([np_(c) for c in rb["live"][:n]])
+    differ = np.flatnonzero((ga != gb).any(-1) | (la != lb).any(-1))
+    return {
+        "frames": n,
+        "vio_trans_err_m": float(np.abs(pa[:, 4:] - pb[:, 4:]).max()),
+        "vio_quat_err": float(np.abs(pa[:, :4] - pb[:, :4]).max()),
+        "cov_rel_err": float((np.linalg.norm(ca - cb, axis=(1, 2))
+                              / np.linalg.norm(cb, axis=(1, 2))).max()),
+        "chi2_mismatch": int((ga != gb).sum()),
+        "live_mismatch": int((la != lb).sum()),
+        "first_differing_frame": int(differ[0]) if len(differ) else None}
+
+
+def rerun_photometric(rec: dict, n: int, dev, dtype=torch.float32):
+    """``photometric.run`` again over the first ``n`` frames of a recorded
+    run, on ``dev`` in ``dtype``. Returns (VioOutput, recorded)."""
+    cfg, fcfg, ps0, pyrs, cu, cs, cd, projs, iw = rec["args"]
+    move = lambda t: t.to(dev, dtype if t.is_floating_point()  # noqa: E731
+                          else t.dtype)
+    head = lambda x: _tree.tree_map(lambda t: move(t[:n]), x)  # noqa: E731
+    again = {}
+    with recorded_photometric(again):
+        _, out = VIL.PH.run(cfg, fcfg, _tree.tree_map(move, ps0), head(pyrs),
+                            head(cu), head(cs), head(cd), head(projs),
+                            head(iw))
+    return out, again
+
+
+def oracle_problem(dev, duration: float, noise: float = 0.0, seed: int = 0):
+    """tests/test_batch_oracle.py's ``_problem`` (a 10 m circle, 200 Hz IMU,
+    20 Hz VIO and 10 Hz LiDAR odometry) over ``duration`` s, made with the
+    port's ``data/synthetic`` in float64 on ``dev``."""
+    from vil_sensor_fusion_tpu_torch import convert
+    from vil_sensor_fusion_tpu_torch.data import synthetic as syn
+
+    f64 = torch.float64
+    rng = np.random.default_rng(seed)
+    traj = syn.circle(radius=10.0, period=20.0)
+    ar = lambda n: torch.arange(n, dtype=f64, device=dev)  # noqa: E731
+    imu = syn.sample_imu(traj, ar(int(duration * 200.0) + 20) / 200.0)
+    t_vio = (ar(int(duration * 20.0)) + 1.0) / 20.0
+    t_lid = (ar(int(duration * 10.0)) + 1.0) / 10.0
+    vio, lid = syn.sample_odometry(traj, t_vio), syn.sample_odometry(traj,
+                                                                     t_lid)
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    vp, lp = host(vio.poses).copy(), host(lid.poses).copy()
+    vp[:, 4:7] += rng.normal(0, noise, vp[:, 4:7].shape)
+    lp[:, 4:7] += rng.normal(0, noise, lp[:, 4:7].shape)
+    tl = fu.merge_timeline([
+        (host(t_vio), vp, host(vio.cov), np.ones(len(vp))),
+        (host(t_lid), lp, host(lid.cov), np.ones(len(lp)))])
+    cfg = fu.FusionConfig(
+        smoother=G.SmootherConfig(window=6, between_slots=12, gn_iters=5),
+        sensors=(
+            fu.SensorSpec(name="vio", optimize_after_odom=True,
+                          covariance_linear=0.02, covariance_angular=0.02,
+                          max_time_skip=0.2),
+            fu.SensorSpec(name="lidar", optimize_after_odom=False,
+                          covariance_linear=0.02, covariance_angular=0.02,
+                          max_time_skip=0.3)),
+        max_imu_per_gap=32)
+    t0 = torch.zeros((), dtype=f64, device=dev)
+    init = (traj.pose_fn(t0), traj.vel_fn(t0),
+            torch.zeros(6, dtype=f64, device=dev))
+    return cfg, convert.to_torch(tl, dev, f64), imu, init
+
+
+def drive_oracle(dev) -> dict:
+    """``graph.batch.solve_batch`` at f64 on the card against the same call
+    on the CPU (poses within 1e-9 m, ``n_between`` equal, cost within 1e-9
+    relative), then the fixed-lag ``fusion.run`` on the card over the first
+    ``FIXED_LAG_DURATION`` s against the card's oracle of that timeline
+    (tests/test_batch_oracle.py's bounds)."""
+    from vil_sensor_fusion_tpu_torch.graph import batch as B
+
+    sync = _sync_of(dev)
+    cfg, tl, imu, init = oracle_problem(dev, ORACLE_DURATION)
+    args = (cfg, tl, imu.times, imu.accel, imu.gyro, *init, 0.0)
+    sync()
+    t0 = time.perf_counter()
+    card = B.solve_batch(*args)
+    sync()
+    t1 = time.perf_counter()
+    cpu = B.solve_batch(*args, device=torch.device("cpu"))
+    t2 = time.perf_counter()
+    nums = {
+        "states": int(card.poses.shape[0]), "n_between": card.n_between,
+        "card_s": t1 - t0, "cpu_s": t2 - t1, "cost": card.cost,
+        "pose_err_m": float((card.poses.cpu() - cpu.poses).abs().max()),
+        "vel_err": float((card.vels.cpu() - cpu.vels).abs().max()),
+        "bias_err": float((card.biases.cpu() - cpu.biases).abs().max()),
+        "cost_rel_err": abs(card.cost - cpu.cost) / max(abs(cpu.cost), 1.0)}
+    check(card.poses.device == dev and card.poses.dtype == torch.float64,
+          "the oracle left the card or float64")
+    check(bool(torch.isfinite(card.poses).all()), "non-finite oracle pose")
+    check(card.n_between == cpu.n_between and card.n_between > 100,
+          f"oracle n_between {card.n_between} / {cpu.n_between}")
+    check(nums["pose_err_m"] <= 1e-9, f"oracle card vs CPU poses "
+          f"{nums['pose_err_m']} m")
+    check(nums["cost_rel_err"] <= 1e-9, f"oracle card vs CPU cost "
+          f"{nums['cost_rel_err']}")
+
+    cfg, tl, imu, (pose0, vel0, bias0) = oracle_problem(dev,
+                                                        FIXED_LAG_DURATION)
+    sync()
+    t0 = time.perf_counter()
+    sol = B.solve_batch(cfg, tl, imu.times, imu.accel, imu.gyro, pose0,
+                        vel0, bias0, 0.0)
+    sync()
+    t1 = time.perf_counter()
+    es = fu.init(cfg, pose0, vel0, bias0, torch.zeros_like(tl.times[0]))
+    _, out = fu.run(cfg, es, tl, imu.times, imu.accel, imu.gyro)
+    sync()
+    t2 = time.perf_counter()
+    d = (out.poses[:, 4:7] - sol.poses[1:, 4:7]).norm(dim=-1).cpu().numpy()
+    nums.update(fixed_lag_events=len(d), fixed_lag_oracle_s=t1 - t0,
+                fixed_lag_run_s=t2 - t1, gap_max_m=float(d.max()),
+                gap_mean_m=float(d.mean()))
+    print("  oracle: " + json.dumps(nums), flush=True)
+    check(bool(np.isfinite(d).all()), "non-finite fixed-lag pose")
+    check(nums["gap_max_m"] < 0.05 and nums["gap_mean_m"] < 0.02,
+          f"fixed-lag vs full MAP gap {nums['gap_max_m']} / "
+          f"{nums['gap_mean_m']} m")
+    return nums
+
+
+def replay_bag_photometric(dev, tmp: Path, geo: dict) -> dict:
+    """Phase 10: phase 8's bag again through ``cli run --bag --config``
+    with ``vio.use_photometric: true`` (images → pyramids and candidates →
+    the direct photometric EKF; LiDAR odometry, gate and fusion as in phase
+    8), checked; the kernel against knn_torch on every k-NN call; the
+    photometric VIO's first frames rerun on the CPU; then the oracle."""
+    config = photometric_config(tmp)
+    cfg = C.load(str(config)).vil()
+    check(cfg.vio.use_photometric, "the photometric config is not")
+    calls, rec = [], {}
+    with recorded_photometric(rec):
+        run = run_cli_bag(geo["bag"], tmp / "engine_photometric.npz", dev,
+                          calls, config=config)
+    res, ba = run["res"], run["ba"]
+    T, Tv = len(ba.lidar_times), len(ba.cam_times)
+    out, st = run["json"], run["stage_s"]
+    events = out["events"]
+    vio = res.vio_out.pose.cpu().double().numpy()
+    vio_cov = res.vio_out.cov.cpu().double().numpy()
+    fused = res.fused.poses.cpu().numpy()
+    live = (torch.stack(rec["live"]) * torch.stack(rec["chi2"])).cpu()
+    geo_st = geo["numbers"]["stage_s"]
+    nums = {
+        "cli": out, "wall_s": run["wall_s"], "stage_s": st,
+        "events_per_s": events / run["wall_s"],
+        "vio_s_per_frame": st["vio"] / Tv,
+        "geometric_vio_tracker_s_per_frame": (geo_st["vio"]
+                                              + geo_st["tracker"]) / Tv,
+        "launches": run["launches"], "sweeps": T, "frames": Tv,
+        "vio_ate_m": ate(vio, ba.gt_poses),
+        "live_share": float(live[1:].mean()),
+        "tmpl_ok": float(rec["final"].tmpl_ok.sum()),
+        "chi2_pass_share": float(torch.stack(rec["chi2"])[1:].mean())}
+    print("  " + json.dumps(nums), flush=True)
+    check(fused.shape == (events, 7) and events == T + Tv,
+          f"photometric replay: {events} events, fused {fused.shape}")
+    check(bool(np.isfinite(fused).all()), "photometric replay: non-finite "
+          "fused pose")
+    check(bool(np.isfinite(vio_cov).all()) and bool(
+        (np.diagonal(vio_cov, axis1=-2, axis2=-1) > 0).all()),
+        "photometric replay: VIO covariance not finite / positive")
+    check(nums["vio_ate_m"] < 0.5, f"photometric VIO ATE "
+          f"{nums['vio_ate_m']} m")
+    check(out["fused_ate_rmse_m"] < 1.0,
+          f"photometric replay fused ATE {out['fused_ate_rmse_m']} m")
+    check(nums["live_share"] > 0.5, f"photometric live share "
+          f"{nums['live_share']} <= 0.5")
+    check(nums["tmpl_ok"] > 0, "photometric replay captured no template")
+    check(out["gate_keep_fraction"] > 0.5,
+          f"photometric replay gate keep share {out['gate_keep_fraction']}")
+    want = geo["cpu_knn_calls_per_sweep"] * T
+    check(run["launches"] == want, f"photometric replay: {run['launches']} "
+          f"k-NN launches, want {want}")
+
+    print(f"[kernel vs plain on the photometric replay] its {len(calls)} "
+          f"k-NN calls", flush=True)
+    max_err = check_drive_knn(calls)
+    calls.clear()
+
+    n = PHOTO_CPU_FRAMES
+    print(f"[photometric cross-check] first {n} frames of the photometric "
+          f"VIO on the CPU", flush=True)
+    t0 = time.perf_counter()
+    cpu = rerun_photometric(rec, n, torch.device("cpu"))
+    cross = compare_photometric((res.vio_out, rec), cpu, n)
+    cross["cpu_s"] = time.perf_counter() - t0
+    print("  " + json.dumps(cross), flush=True)
+    for key, tol in PHOTO_CROSS_TOL.items():
+        check(cross[key] <= tol, f"photometric cross-check {key} "
+              f"{cross[key]} > {tol}")
+
+    print(f"[oracle] graph.batch.solve_batch, f64, {ORACLE_DURATION} s "
+          f"circle: card vs CPU; fixed-lag fusion.run over "
+          f"{FIXED_LAG_DURATION} s against it", flush=True)
+    oracle = drive_oracle(dev)
+    return {"numbers": nums, "cross": cross, "oracle": oracle,
+            "max_err": max_err}
+
+
 def main() -> int:
     # Phase 1: the device.
     if not torch.cuda.is_available():
@@ -1538,9 +1836,13 @@ def main() -> int:
     max_err = max(max_err, exp["max_err"])
 
     # Phase 8: raw-sensor bag replay through the CLI at the reference rig.
+    # The bag stays in build/ until phase 10 has replayed it again.
     print(f"[bag replay] {BAG_DURATION} s town drive at "
           f"{FULL_CONFIG.name}'s rig -> bz2 bag -> cli run --bag", flush=True)
-    bag = replay_bag(dev)
+    (REPO / "build").mkdir(exist_ok=True)
+    tmp_dir = tempfile.TemporaryDirectory(dir=REPO / "build")
+    tmp = Path(tmp_dir.name)
+    bag = replay_bag(dev, tmp)
     max_err = max(max_err, bag["max_err"])
 
     # Phase 9: lanes and collectives on a one-rank mesh of the card.
@@ -1553,11 +1855,19 @@ def main() -> int:
     max_err = max(max_err, check_drive_knn(par.pop("knn_calls")))
     dist.destroy_process_group()
 
+    # Phase 10: phase 8's bag through the photometric VIO; the oracle.
+    print(f"[photometric bag replay] phase 8's bag -> cli run --bag with "
+          f"vio.use_photometric: true", flush=True)
+    photo = replay_bag_photometric(dev, tmp, bag)
+    tmp_dir.cleanup()
+    max_err = max(max_err, photo["max_err"])
+
     launches = {"town_image_drive": launches_4}
     launches.update({f"experiments_{k}": c["launches"]
                      for k, c in exp["cells"].items()})
     launches["bag_replay"] = bag["numbers"]["launches"]
     launches["sharded_lidar_step"] = par["numbers"]["model"]["launches"]
+    launches["bag_replay_photometric"] = photo["numbers"]["launches"]
     print(f"card: {card}")
     print(kernels_line(card, launches, max_err, shapes,
                        exp["knn_calls_per_sweep"],

@@ -48,6 +48,7 @@ from vil_sensor_fusion_tpu_torch.data import scenarios as TSC
 from vil_sensor_fusion_tpu_torch.frontends.lidar import rangeimage as TRI
 from vil_sensor_fusion_tpu_torch.frontends.lidar import voxelmap as TVM
 from vil_sensor_fusion_tpu_torch.fusion import vil as TVIL
+from vil_sensor_fusion_tpu_torch.ops import knn as TK
 
 EPOCH = 1.7e9       # a ROS epoch: not representable in f32
 
@@ -475,13 +476,49 @@ def test_run_vil_from_bag_matches_jax(scenario_bag):
                   - bt.gt_poses[idx][:, 4:]).max() < 0.5
 
 
-def test_run_vil_from_bag_refuses_photometric(scenario_bag):
+def test_run_vil_from_bag_refuses_photometric(scenario_bag, monkeypatch):
+    """The photometric mode of ``run_vil_from_bag`` (once refused) against
+    JAX's: images → pyramids and candidates → the direct photometric EKF,
+    then LiDAR odometry, the gate and fusion, in float64 within the band
+    of the geometric run above; the port's k-NN calls are 4 per sweep."""
     path, _ = scenario_bag
-    cfg, _ = _config()
+    cfg, fe = _config()
+    cfg = cfg._replace(vio=cfg.vio._replace(use_photometric=True))
+    topics = dict(gt_topic="/gt/odometry")
+    _, rj, _ = JVIL.run_vil_from_bag(path, cfg=cfg, fe_cfg=fe,
+                                     topics=topics, dtype=jnp.float64)
+    calls = []
+    knn = TK.knn
+
+    def count(*a, **k):
+        calls.append(a[0].shape[0])
+        return knn(*a, **k)
+    monkeypatch.setattr(TK, "knn", count)
     c = convert.to_torch(cfg, "cpu")
-    c = c._replace(vio=c.vio._replace(use_photometric=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        TVIL.run_vil_from_bag(path, cfg=c, device="cpu")
+    _, rt, bt = TVIL.run_vil_from_bag(
+        path, cfg=c, fe_cfg=convert.to_torch(fe, "cpu"), topics=topics,
+        dtype=torch.float64, device="cpu")
+    for f in ("pose", "vel", "cov"):
+        np.testing.assert_allclose(getattr(rt.vio_out, f).numpy(),
+                                   np.asarray(getattr(rj.vio_out, f)),
+                                   atol=1e-7)
+    np.testing.assert_allclose(rt.lidar_out.pose.numpy(),
+                               np.asarray(rj.lidar_out.pose), atol=1e-5)
+    np.testing.assert_allclose(rt.lidar_out.n_corr.numpy(),
+                               np.asarray(rj.lidar_out.n_corr), atol=2)
+    np.testing.assert_array_equal(rt.gate.keep.numpy(),
+                                  np.asarray(rj.gate.keep))
+    np.testing.assert_allclose(rt.fused.poses.numpy(),
+                               np.asarray(rj.fused.poses), atol=1e-7)
+    assert rt.fused.poses.shape == (15, 7)
+    assert np.isfinite(rt.vio_out.cov.numpy()).all()
+    # Two-stage ICP: line and plane fits of the scan-to-scan and the
+    # scan-to-map stage, every sweep.
+    assert len(calls) == 4 * len(bt.lidar_times)
+    err = np.abs(rt.vio_out.pose.numpy()[:, 4:] - bt.gt_poses[
+        np.clip(np.searchsorted(bt.gt_times, bt.cam_times), 0,
+                len(bt.gt_times) - 1)][:, 4:]).max()
+    assert err < 0.5
 
 
 class _Stop(Exception):

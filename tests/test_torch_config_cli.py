@@ -7,8 +7,9 @@
   the same bag; ``fuse-bag`` prints the same event count and time range
   and writes the same ``t x y z`` rows, within 1e-5 m (both run the
   fusion engine in float32, in another order of operations).
-- ``record`` → ``run --bag`` and ``run --scenario`` run in-process on the
-  CPU (``--device cpu``) and print the JAX CLI's keys; ``--model-devices 2``
+- ``record`` → ``run --bag`` (geometric and photometric VIO) and ``run
+  --scenario`` run in-process on the CPU (``--device cpu``) and print the
+  JAX CLI's keys; ``--model-devices 2``
   in a world of one process and ``bench`` raise; ``experiments`` builds
   the JAX grids' spec lists.
 """
@@ -258,6 +259,32 @@ def test_record_then_run_bag_on_cpu(tmp_path, capsys):
     assert out["gate_keep_fraction"] > 0.5
     with np.load(tmp_path / "ck.npz") as z:
         assert ".smoother//.states//.poses" in z.files
+
+
+def test_run_bag_photometric_on_cpu(tmp_path, capsys):
+    """`run --bag --config` with ``vio.use_photometric: true`` replays the
+    bag through the direct photometric VIO (no KLT stage) and the rest of
+    the stack; `run --scenario` with the same YAML raises the JAX
+    ``run_vil``'s ValueError (synthetic tracks feed no photometric
+    update)."""
+    bag = str(tmp_path / "town.bag")
+    TCLI.main(["record", "--duration", "0.5", "--out", bag,
+               "--device", "cpu"])
+    _json_out(capsys)
+    cfg = tmp_path / "photo.yaml"
+    cfg.write_text(CPU_RUN_YAML.replace(
+        "vio: {num_landmarks: 12}", "vio: {num_landmarks: 12, "
+        "use_photometric: true}"))
+    assert TC.load(str(cfg)).vil().vio.use_photometric
+    TCLI.main(["run", "--bag", bag, "--config", str(cfg), "--device", "cpu"])
+    out = _json_out(capsys)
+    assert set(out) == RUN_BAG_KEYS - {"checkpoint"}
+    assert out["events"] == 15 and out["healthy_fraction"] == 1.0
+    assert out["fused_ate_rmse_m"] < 1.0
+    assert out["gate_keep_fraction"] > 0.5
+    with pytest.raises(ValueError, match="requires photo_inputs"):
+        TCLI.main(["run", "--scenario", "town", "--duration", "0.1",
+                   "--config", str(cfg), "--device", "cpu"])
 
 
 def test_run_scenario_on_cpu(tmp_path, capsys):

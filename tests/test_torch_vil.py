@@ -139,11 +139,16 @@ def test_run_vil_matches_jax():
 
 
 def test_photometric_vio_is_not_ported():
+    """The photometric mode without its precomputed frame inputs raises
+    the JAX ``run_vil``'s ValueError, with its message."""
     c = convert.to_torch(_config(), "cpu")
     c = c._replace(vio=c.vio._replace(use_photometric=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        TVIL.run_vil(c, None, None, None, None, None, None, None, None,
-                     None)
+    with pytest.raises(ValueError) as want:
+        JVIL.run_vil(c, *[None] * 9)
+    with pytest.raises(ValueError) as got:
+        TVIL.run_vil(c, *[None] * 9)
+    assert str(got.value) == str(want.value)
+    assert "requires photo_inputs" in str(got.value)
 
 
 def test_port_imports_no_jax():
@@ -157,6 +162,8 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "assert len(names) > 25, names\n"
+        "assert {'vil_sensor_fusion_tpu_torch.frontends.vio.photometric',"
+        " 'vil_sensor_fusion_tpu_torch.graph.batch'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'vil_sensor_fusion_tpu'))\n"
         "assert not bad, bad\n")
@@ -164,3 +171,16 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """The port mirrors the JAX package file for file: every ``*.py`` of
+    ``vil_sensor_fusion_tpu/`` has a namesake in the port."""
+    def modules(pkg):
+        root = os.path.join(REPO, pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, files in os.walk(root) for f in files
+                if f.endswith(".py")}
+    jax_modules = modules("vil_sensor_fusion_tpu")
+    assert len(jax_modules) > 40
+    assert jax_modules - modules("vil_sensor_fusion_tpu_torch") == set()

@@ -3,9 +3,9 @@
 Port of the geometric path of ``vil_sensor_fusion_tpu/frontends/vio/ekf.py``:
 IMU-propagated error-state EKF with landmarks in the state, iterated
 reprojection updates with LiDAR depth rows, gravity and zero-velocity
-pseudo-measurements, and LiDAR-depth landmark initialisation.
-``depth_update`` (the photometric mode's standalone depth rows) is not
-ported yet.
+pseudo-measurements, LiDAR-depth landmark initialisation, and the
+standalone camera-axis depth rows of the direct photometric mode
+(``depth_update``; the photometric update itself is ``photometric.py``).
 
 State: pose (q wxyz, p), vel, bias (ba, bg), M landmark world points.
 Error order: [δθ(3) | δp(3) | δv(3) | δba(3) | δbg(3) | δl₁(3) … δl_M(3)],
@@ -66,7 +66,8 @@ class VioConfig(NamedTuple):
     zuv_gyro_th: float = 0.02        # rad/s max mean |ω| for "no motion"
     zuv_accel_th: float = 0.15       # m/s² max std of ‖accel‖ for "no motion"
     zuv_chi2_gate: float = 7.69      # Mahalanobis gate (MahalanobisTh0)
-    # Direct photometric mode (not ported yet; ROADMAP Queue 1 item 2).
+    # Direct photometric mode (photometric.py; rovio.cfg patchSize/nLevels/
+    # UpdateNoise.pix).
     use_photometric: bool = False
     patch_radius: int = 3
     photo_levels: int = 2
@@ -356,6 +357,36 @@ def _gated_update(cfg: VioConfig, s: VioState, H: torch.Tensor,
     K = _solve(S, HP).mT
     s_new = _retract(cfg, s, K @ r)
     return s_new._replace(cov=_joseph(s.cov, H, K, R_eff))
+
+
+def depth_update(
+    cfg: VioConfig,
+    s: VioState,
+    obs_depth: torch.Tensor,    # (M,) LiDAR depth at the PREDICTED pixels
+) -> VioState:
+    """Standalone per-landmark LiDAR range update (camera-axis depth): the
+    continuous useDepthFromLiDAR scale anchor of the photometric pipeline,
+    where there is no tracked pixel to fuse the rows with (the geometric
+    path fuses them inside :func:`update`). z = depth, h(x) = camera-frame
+    z of the landmark; each row is χ²-gated, and masked rows (dead slot,
+    out of view, no depth, gate failed) get variance 1e12."""
+    dtype = s.pose.dtype
+    R_dep = cfg.depth_sigma_update ** 2
+    s0 = s
+
+    def h_of(dx):
+        return _predict_cam_z(cfg, _retract(cfg, s0, dx))
+
+    dx0 = torch.zeros((s.cov.shape[0],), dtype=dtype, device=s.pose.device)
+    H, pred = jacfwd(_with_value(h_of), has_aux=True)(dx0)     # (M, D)
+    _, vis = _predict_pixels(cfg, s0)
+    r = obs_depth - pred
+    S_diag = ((H @ s0.cov) * H).sum(-1)
+    chi2 = r * r / (S_diag + R_dep)
+    w = (s.lm_valid * vis.to(dtype) * (obs_depth > 0)
+         * (chi2 < cfg.depth_chi2_gate).to(dtype))
+    R_eff = torch.where(w > 0, torch.full_like(r, R_dep), 1e12)
+    return _gated_update(cfg, s0, H, r, R_eff)
 
 
 def gravity_update(

@@ -9,17 +9,18 @@ degenerate_odometry_filter + gtsam_fusion_node), stage for stage:
     IMU ──────────────────────────────────────────────────┴→ fusion engine
                                                              → fused pose
 
-Port of ``vil_sensor_fusion_tpu/fusion/vil.py`` in its geometric VIO
-mode: ``run_vil`` over array streams, and the raw-sensor bag entry points
-(``build_vio_frames_from_bag``, ``run_vil_from_bag``: bag → organized
+Port of ``vil_sensor_fusion_tpu/fusion/vil.py``: ``run_vil`` over array
+streams, and the raw-sensor bag entry points (``build_vio_frames_from_bag``,
+``build_photo_inputs_from_bag``, ``run_vil_from_bag``: bag → organized
 sweeps → LiDAR odometry, bag → images → tracker → EKF, gate, fusion). With
+``VioConfig.use_photometric`` the VIO stage is the direct photometric
+filter (``frontends/vio/photometric.run`` over :class:`PhotoInputs`: no KLT
+stage, the patch alignment happens inside the EKF update). With
 ``LidarOdomConfig.emit_dists`` the LiDAR stage also returns the
 perturbation-sweep distances (``lidar_out.dists``) that the experiment
 harness (``eval/experiments.py``) turns into dist slopes. A ``mesh``
 spreads the scan-to-map registration over the ranks of its model axis
-(``parallel.ops.make_sharded_register``). Not ported yet: the direct
-photometric VIO (``VioConfig.use_photometric``,
-``build_photo_inputs_from_bag``).
+(``parallel.ops.make_sharded_register``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ..data import ingest as IG
 from ..degeneracy import gate as DG
 from ..frontends import lidar as L
 from ..frontends import vio as V
+from ..frontends.vio import photometric as PH
 from . import engine as E
 
 
@@ -67,11 +69,20 @@ class VilResult(NamedTuple):
     gate: DG.GateResult           # over lidar sweeps
 
 
-def _refuse_photometric(cfg: VilConfig) -> None:
-    if cfg.vio.use_photometric:
-        raise NotImplementedError(
-            "the direct photometric VIO (VioConfig.use_photometric) is not "
-            "ported yet: ROADMAP.md Queue 1 item 2")
+class PhotoInputs(NamedTuple):
+    """Precomputed per-frame inputs of the direct photometric VIO path
+    (``VioConfig.use_photometric=True``): the batched outputs of
+    ``frontend.precompute_frames`` plus the per-frame IMU windows. There is
+    no KLT tracking stage: alignment happens inside the iterated EKF update
+    (``frontends.vio.photometric``)."""
+
+    fe_cfg: object                # frontend.FrontendConfig (static)
+    pyrs: tuple                   # L × (T, h_l, w_l)
+    cand_uv: torch.Tensor         # (T, C, 2)
+    cand_score: torch.Tensor      # (T, C)
+    cand_depth: torch.Tensor      # (T, C)
+    projs: torch.Tensor           # (T, P_pts, 3)
+    imu_windows: tuple            # (accel (T,N,3), gyro (T,N,3), dts (T,N))
 
 
 def run_vil(
@@ -90,6 +101,10 @@ def run_vil(
     # Model parallelism: a parallel.mesh.Mesh whose model axis spreads the
     # scan-to-map registration's points over ranks.
     mesh=None,
+    # Direct photometric VIO (cfg.vio.use_photometric): stage 1 runs
+    # frontends.vio.photometric.run over these precomputed frame inputs
+    # instead of the geometric KLT + reprojection pipeline.
+    photo_inputs: PhotoInputs | None = None,
 ) -> tuple[E.EngineState, VilResult]:
     """Run the full system over one sequence, on the device the inputs
     live on. The front-ends run first (they are causal); their odometry
@@ -106,8 +121,18 @@ def run_vil(
     gets the same result."""
     _precision.require_full_f32()
     # --- Stage 1: VIO ------------------------------------------------------
-    _refuse_photometric(cfg)
-    _, vio_out = V.run(cfg.vio, vio_state, vio_frames)
+    if cfg.vio.use_photometric:
+        if photo_inputs is None:
+            raise ValueError(
+                "cfg.vio.use_photometric=True requires photo_inputs "
+                "(fusion.vil.PhotoInputs — see build_photo_inputs_from_bag)")
+        pi = photo_inputs
+        _, vio_out = PH.run(cfg.vio, pi.fe_cfg,
+                            PH.init_photo(cfg.vio, vio_state), pi.pyrs,
+                            pi.cand_uv, pi.cand_score, pi.cand_depth,
+                            pi.projs, pi.imu_windows)
+    else:
+        _, vio_out = V.run(cfg.vio, vio_state, vio_frames)
 
     # --- Stage 2: LiDAR odometry -------------------------------------------
     register_fn = None
@@ -199,6 +224,27 @@ def build_vio_frames_from_bag(
                                    num_slots)
 
 
+def build_photo_inputs_from_bag(
+    fe_cfg,
+    ba: IG.BagArrays,
+    pose_ic,                       # (7,) imu_T_camera
+    sweep_stride: int = 4,
+    dtype=torch.float32,
+) -> PhotoInputs:
+    """Raw bag streams → PhotoInputs for the direct photometric pipeline,
+    on the device of the bag's sweeps: the batched half of the front-end
+    only (pyramids, Shi-Tomasi candidates, projected sweeps, candidate
+    depths), since the photometric update subsumes tracking."""
+    imu_w, pts_cam, msk = _bag_frame_streams(ba, pose_ic, sweep_stride, dtype)
+    images = torch.as_tensor(ba.images, dtype=dtype, device=pts_cam.device)
+    pyrs = V.frontend.pyramids_batch(fe_cfg, images)
+    cand_uv, cand_score, cand_depth, projs = V.frontend.candidates_batch(
+        fe_cfg, images, pts_cam, msk)
+    return PhotoInputs(fe_cfg=fe_cfg, pyrs=pyrs, cand_uv=cand_uv,
+                       cand_score=cand_score, cand_depth=cand_depth,
+                       projs=projs, imu_windows=imu_w)
+
+
 def run_vil_from_bag(
     path,
     cfg: VilConfig | None = None,
@@ -211,21 +257,27 @@ def run_vil_from_bag(
     mesh=None,
 ):
     """Replay a raw-sensor bag through the FULL stack on ``device`` — bag →
-    organized sweeps → LiDAR odometry, bag → images → tracker → EKF,
-    degeneracy gate, fusion — one call reproducing fusion_carla.launch's
-    job (gtsam_fusion/launch/fusion_carla.launch:13-97).
+    organized sweeps → LiDAR odometry, bag → images → tracker → EKF (or,
+    with ``cfg.vio.use_photometric``, images → pyramids and candidates →
+    the direct photometric EKF), degeneracy gate, fusion — one call
+    reproducing fusion_carla.launch's job
+    (gtsam_fusion/launch/fusion_carla.launch:13-97).
 
     ``mesh`` as in :func:`run_vil`. Returns (engine_state, VilResult,
     BagArrays)."""
     cfg = cfg or VilConfig()
-    _refuse_photometric(cfg)
     if pose_ic is None:
         pose_ic = cfg.vio.pose_ic
     fe_cfg = fe_cfg or V.FrontendConfig(cam=cfg.vio.cam)
     ba = IG.load_bag(path, dtype=dtype, device=device, **(topics or {}))
-    frames = build_vio_frames_from_bag(fe_cfg, ba, pose_ic,
-                                       cfg.vio.num_landmarks,
-                                       sweep_stride=sweep_stride, dtype=dtype)
+    photo_inputs = frames = None
+    if cfg.vio.use_photometric:
+        photo_inputs = build_photo_inputs_from_bag(
+            fe_cfg, ba, pose_ic, sweep_stride=sweep_stride, dtype=dtype)
+    else:
+        frames = build_vio_frames_from_bag(
+            fe_cfg, ba, pose_ic, cfg.vio.num_landmarks,
+            sweep_stride=sweep_stride, dtype=dtype)
 
     # Initial state: GT odometry if recorded, else identity at rest (the
     # reference hardcodes identity priors — GraphManager.cpp:20-35).
@@ -251,5 +303,6 @@ def run_vil_from_bag(
         cfg, tensor(ba.imu_times), tensor(ba.imu_accel), tensor(ba.imu_gyro),
         ba.cam_times, frames, vio_state,
         ba.lidar_times, ba.sweeps, lidar_state,
-        lidar_guess_from_vio_idx=guess_idx, engine_state=es, mesh=mesh)
+        lidar_guess_from_vio_idx=guess_idx, engine_state=es, mesh=mesh,
+        photo_inputs=photo_inputs)
     return es, res, ba
