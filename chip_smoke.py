@@ -14,7 +14,13 @@ result line:
    device time (a CUDA graph of 20 launches, replayed), the wrapper's call
    time (back-to-back events) and host time (1,000 calls, no sync), the
    bound (8 FLOP per pair at 67 TFLOP/s f32), the plain version and the
-   library expression (``torch.mm`` + ``torch.topk``, ties aside).
+   library expression (``torch.mm`` + ``torch.topk``, ties aside). The
+   same for the kernel's lane entry (``knn_cuda_lanes``: 8 searches of one
+   shape in one launch) against ``knn_torch_lanes``: 8 lanes at the four
+   bench shapes with a different mask density per lane, a lane with one
+   valid target, ties across lanes and splits, every lane also equal bit
+   for bit to the single-search kernel on it; times per launch of 8 lanes
+   with ``torch.bmm`` + ``torch.topk`` as the library.
 4. The full path at the bench's rig: the 1.5 s ``town`` drive's 30 camera
    frames (800×600, fov 100°) and camera-frame sweep points rendered on the
    card (untimed), then the image tracker (pyramids, detection with LiDAR
@@ -93,11 +99,26 @@ result line:
    4 s (poses within 1e-9 m, ``n_between`` equal, cost within 1e-9
    relative), and the fixed-lag ``fusion.run`` on the card over its first
    1.5 s against the oracle of that timeline (the test's bounds).
+11. Bench lanes: ``cli.main(["bench", "--lanes", "8", "--duration",
+   "0.6", "--reps", "1"])`` on the card: 8 town seeds at the bench's rig
+   (800×600 camera, full sweeps; 6 sweeps and 12 frames, 18 events per
+   lane) through every stage batched over the lanes (``bench.py`` of the
+   package: pyramids, candidates, ``track_frames_lanes``,
+   ``pipeline.run_lanes``, ``odometry.run_lanes``, ``logdet_gate``,
+   ``engine.run_lanes``), a warm and a timed pass, lane 0 alone through the
+   single-sequence functions, and the k-NN microbench. Prints events/s,
+   pass and single-stream walls, stage ms of both, ATEs per lane. Checks:
+   the one stdout JSON line; fused poses finite in every lane; VIO / LiDAR
+   ATE < 0.5 m and fused ATE < 1.0 m per lane; k-NN launches per pass = 4
+   per sweep (one launch for all lanes, not one per lane); the lane kernel
+   against ``knn_torch_lanes`` on every lane-batched k-NN call of the cold
+   pass; lane 0 against its single-stream run within ``CROSS_TOL``.
 
 The last two lines are a JSON object describing the kernels (one sweep's
 sums in ms: ``ms`` the wrapper's call time, ``device_ms`` the kernel's
 own; per-shape µs under ``per_shape_us``; launches per driven path; the
-kernel's ms per experiment sweep and per bag-replay sweep; the card) and
+kernel's ms per experiment sweep and per bag-replay sweep; the card; and
+the lane entry ``knn5_f32_lanes`` with one 8-lane bench sweep's sums) and
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX. The stages
 are timed with the port's ``utils.tracing.StageTimer``.
 """
@@ -114,6 +135,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 from typing import NamedTuple
 
@@ -127,6 +149,7 @@ from vil_sensor_fusion_tpu_torch import config as C
 from vil_sensor_fusion_tpu_torch import fusion as fu
 from vil_sensor_fusion_tpu_torch import graph as G
 from vil_sensor_fusion_tpu_torch import utils as U
+from vil_sensor_fusion_tpu_torch.bench import knn_library
 from vil_sensor_fusion_tpu_torch.core import lie
 from vil_sensor_fusion_tpu_torch.data import ingest as IG
 from vil_sensor_fusion_tpu_torch.data import scenarios
@@ -259,26 +282,15 @@ F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 
-def knn_bound_ms(Q: int, M: int) -> tuple[float, str]:
-    """The least time the card could take for one k=5 search: 8 FLOP per
+def knn_bound_ms(Q: int, M: int, B: int = 1) -> tuple[float, str]:
+    """The least time the card could take for B k=5 searches: 8 FLOP per
     (query, target) pair (3 for q·t's products, 2 adds, one FMA for
     ‖q‖² − 2q·t, one add of ‖t‖²) in f32, against reading queries (12 B),
     targets and mask (16 B) once and writing 5 int32 + 5 f32 per query."""
-    ops_ms = 8.0 * Q * M / F32_FLOPS * 1e3
-    bytes_ms = (12.0 * Q + 16.0 * M + 40.0 * Q) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 8.0 * Q * M * B / F32_FLOPS * 1e3
+    bytes_ms = B * (12.0 * Q + 16.0 * M + 40.0 * Q) / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
-
-
-def knn_library(q, t, m, k: int = 5):
-    """The shortest PyTorch expression of the search, ties aside (topk
-    promises no order among equal distances): the distance rows from one
-    ``torch.mm``, then ``torch.topk``. Timed as a yardstick only; the port
-    never calls it."""
-    d = ((q * q).sum(1, keepdim=True) - 2.0 * torch.mm(q, t.T)
-         + torch.where(m > 0, (t * t).sum(1), torch.inf)[None])
-    dist, idx = torch.topk(d, k, dim=1, largest=False)
-    return idx, dist
 
 
 def _map_cloud(n: int, g: torch.Generator) -> torch.Tensor:
@@ -359,12 +371,46 @@ def compare_knn(name: str, q, t, m) -> tuple:
     distances, equal indices wherever neighbours are separated, exact ties
     to the lower index. Returns (kernel idx, plain idx, |Δd²|, tol,
     separated slots)."""
-    M = t.shape[0]
     i_k, d_k = K.knn_cuda(q, t, m)
     torch.cuda.synchronize()
     # The plain version's 6th neighbour gives the gap after the 5th.
     i_p6, d_p6 = K.knn_torch(q, t, m, k=6)
     torch.cuda.synchronize()
+    err, tol, sep = check_knn_result(name, q, t, m, i_k, d_k, i_p6, d_p6)
+    return i_k, i_p6[:, :5], err, tol, sep
+
+
+def compare_knn_lanes(name: str, q, t, m) -> tuple:
+    """Hold the lane kernel (one launch for the B lanes of (B, Q, 3)
+    queries, (B, M, 3) targets, (B, M) masks) against ``knn_torch_lanes``
+    with :func:`check_knn_result`'s checks in every lane, and every lane
+    equal bit for bit to the single-search kernel on that lane alone (a
+    result does not depend on the grid). Returns (kernel idx, plain idx,
+    largest |Δd²|, largest tol, separated slots)."""
+    i_k, d_k = K.knn_cuda_lanes(q, t, m)
+    torch.cuda.synchronize()
+    i_p6, d_p6 = K.knn_torch_lanes(q, t, m, k=6)
+    torch.cuda.synchronize()
+    errs, tols, seps = [], [], []
+    for b in range(q.shape[0]):
+        err, tol, sep = check_knn_result(f"{name} lane {b}", q[b], t[b],
+                                         m[b], i_k[b], d_k[b], i_p6[b],
+                                         d_p6[b])
+        i_1, d_1 = K.knn_cuda(q[b], t[b], m[b])
+        check(torch.equal(i_1, i_k[b]) and torch.equal(d_1, d_k[b]),
+              f"{name} lane {b}: the lane kernel differs from the single "
+              "search on that lane")
+        errs.append(err)
+        tols.append(tol)
+        seps.append(sep)
+    return i_k, i_p6[..., :5], max(errs), max(tols), torch.stack(seps)
+
+
+def check_knn_result(name: str, q, t, m, i_k, d_k, i_p6, d_p6) -> tuple:
+    """:func:`compare_knn`'s checks on the kernel's (idx, d²) of one search
+    against the plain version's 6 nearest. Returns (|Δd²|, tol,
+    separated slots)."""
+    M = t.shape[0]
     i_p, d_p = i_p6[:, :5], d_p6[:, :5]
     # Both sides evaluate ‖q‖² − 2q·t + ‖t‖² in f32 but sum in another
     # order, so a distance may move by a few ulps of its largest term:
@@ -389,7 +435,7 @@ def compare_knn(name: str, q, t, m) -> tuple:
     tie = d_k[:, 1:] == d_k[:, :-1]
     check(bool((i_k[:, 1:] > i_k[:, :-1])[tie & fin[:, 1:]].all()),
           f"{name}: an exact tie kept the higher index first")
-    return i_k, i_p, err, tol, sep
+    return err, tol, sep
 
 
 def check_knn_cases(dev: torch.device) -> float:
@@ -430,6 +476,133 @@ def check_knn_cases(dev: torch.device) -> float:
     return max_err
 
 
+KNN_LANES = 8           # the bench's lanes (bench.py:64)
+ONE_VALID_LANE, ONE_VALID_TARGET = 5, 1234
+
+
+def knn_lane_cases(g: torch.Generator) -> list[tuple[str, torch.Tensor,
+                                                     torch.Tensor,
+                                                     torch.Tensor]]:
+    """Lane cases of the kernel: (B, Q, 3), (B, M, 3), (B, M) inputs."""
+    B = KNN_LANES
+    lanes = lambda f: torch.stack([f(b) for b in range(B)])
+    cases = []
+    # The bench's four shapes, each lane its own clouds and its own mask
+    # density (5% to 75% of the targets masked).
+    for Q, M in MAIN_PATH_SHAPES:
+        cases.append((f"lanes{B}_{Q}x{M}", lanes(lambda b: _map_cloud(Q, g)),
+                      lanes(lambda b: _map_cloud(M, g)),
+                      lanes(lambda b: (torch.rand(M, generator=g)
+                                       > 0.05 + 0.1 * b).float())))
+    # One lane with a single valid target, the others full.
+    Q, M = MAIN_PATH_SHAPES[1]
+    m = torch.ones(B, M)
+    m[ONE_VALID_LANE] = 0.0
+    m[ONE_VALID_LANE, ONE_VALID_TARGET] = 1.0
+    cases.append((f"lanes{B}_one_valid_{Q}x{M}",
+                  lanes(lambda b: _map_cloud(Q, g)),
+                  lanes(lambda b: _map_cloud(M, g)), m))
+    # Ties across lanes and splits: every lane holds the same map but
+    # copies its own targets (tie_sel(b)) 2,048 places on, into another
+    # split; each query sits on one of its lane's copied targets.
+    base = _map_cloud(4096, g)
+
+    def tie_map(b):
+        t = base.clone()
+        t[2048 + tie_sel(b)] = t[tie_sel(b)]
+        return t
+    t = lanes(tie_map)
+    cases.append((f"lanes{B}_split_tie_8x4096",
+                  lanes(lambda b: t[b, tie_sel(b)]), t, torch.ones(B, 4096)))
+    return cases
+
+
+def tie_sel(b: int) -> torch.Tensor:
+    """Lane b's tied targets: SEL_SPLIT_TIE moved b places within the
+    first 2,048."""
+    return (SEL_SPLIT_TIE + b) % 2048
+
+
+def check_knn_lane_cases(dev: torch.device) -> float:
+    """Hold the lane kernel against knn_torch_lanes (and each lane against
+    the single-search kernel) at every lane case; return the largest
+    |Δd²|."""
+    g = torch.Generator().manual_seed(3)
+    max_err = 0.0
+    for name, q, t, m in knn_lane_cases(g):
+        q, t, m = q.to(dev), t.to(dev), m.to(dev)
+        i_k, _, err, tol, _ = compare_knn_lanes(name, q, t, m)
+        B = q.shape[0]
+        if "one_valid" in name:
+            lane = i_k[ONE_VALID_LANE].cpu()
+            check(bool((lane[:, 0] == ONE_VALID_TARGET).all())
+                  and bool((lane[:, 1:] == 0).all()),
+                  f"{name}: the lane with one valid target")
+        if "split_tie" in name:
+            sel = torch.stack([tie_sel(b) for b in range(B)])
+            want = torch.stack([sel, sel + 2048], -1)
+            check(torch.equal(i_k[..., :2].cpu().long(), want),
+                  f"{name}: a tie across splits kept the higher index")
+        max_err = max(max_err, err)
+        print(f"  {name:28s} ok   max|Δd²| {err:.3g}  (tol {tol:.3g}), "
+              f"every lane = its single search", flush=True)
+    # The lane wrapper refuses what the kernel does not take: more than
+    # 65,535 (lane, query tile) pairs, CPU tensors, a missing lane axis.
+    q, t, m = (torch.zeros(600, 2000, 3, device=dev),
+               torch.zeros(600, 64, 3, device=dev),
+               torch.ones(600, 64, device=dev))
+    for bad in (lambda: K.knn_cuda_lanes(q, t, m),
+                lambda: K.knn_cuda_lanes(q[:2].cpu(), t[:2].cpu(),
+                                         m[:2].cpu()),
+                lambda: K.knn_cuda_lanes(q[0], t[0], m[0])):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            continue
+        raise Failed("knn_cuda_lanes accepted an input it must refuse")
+    return max_err
+
+
+def knn_library_lanes(q, t, m, k: int = 5):
+    """:func:`knn_library` over a lane axis: ``torch.bmm`` + ``torch.topk``
+    (a yardstick only)."""
+    d = ((q * q).sum(-1, keepdim=True) - 2.0 * torch.bmm(q, t.mT)
+         + torch.where(m > 0, (t * t).sum(-1), torch.inf)[:, None])
+    dist, idx = torch.topk(d, k, dim=-1, largest=False)
+    return idx, dist
+
+
+def time_knn_lane_shapes(dev: torch.device, B: int = KNN_LANES) -> dict:
+    """Per bench shape, µs per call of B lanes in one launch: device time
+    (CUDA graph), call and host time, the bound (B searches), the plain
+    twin ``knn_torch_lanes`` and the library (``torch.bmm`` +
+    ``torch.topk``)."""
+    g = torch.Generator().manual_seed(4)
+    out = {}
+    for Q, M in MAIN_PATH_SHAPES:
+        q = torch.stack([_map_cloud(Q, g) for _ in range(B)]).to(dev)
+        t = torch.stack([_map_cloud(M, g) for _ in range(B)]).to(dev)
+        m = (torch.rand(B, M, generator=g) > 0.05).float().to(dev)
+        kern = lambda: K.knn_cuda_lanes(q, t, m)
+        ev = time_turns({"call": kern,
+                         "plain": lambda: K.knn_torch_lanes(q, t, m),
+                         "library": lambda: knn_library_lanes(q, t, m)})
+        bound, bound_by = knn_bound_ms(Q, M, B)
+        row = {"lanes": B, "device_us": graph_ms(kern) * 1e3,
+               "call_us": ev["call"] * 1e3, "host_us": host_ms(kern) * 1e3,
+               "bound_us": bound * 1e3, "bound_by": bound_by,
+               "plain_us": ev["plain"] * 1e3,
+               "library_us": ev["library"] * 1e3}
+        row["roofline_share"] = row["bound_us"] / row["device_us"]
+        out[f"{B}x{Q}x{M}"] = row
+        print(f"  {B}x{Q:5d}x{M:<5d} device {row['device_us']:8.2f}  call "
+              f"{row['call_us']:8.2f}  host {row['host_us']:7.2f}  bound "
+              f"{row['bound_us']:6.3f} ({100 * row['roofline_share']:.1f}%)  "
+              f"library {row['library_us']:8.2f}  plain "
+              f"{row['plain_us']:8.2f}  us", flush=True)
+    return out
+
+
 def time_knn_shapes(dev: torch.device) -> dict:
     """Per main-path shape, µs per call: the kernel's device time (CUDA
     graph), the wrapper's call time (back-to-back events) and host time,
@@ -460,13 +633,16 @@ def time_knn_shapes(dev: torch.device) -> dict:
 
 def kernels_line(card: str, launches: dict, max_err: float,
                  shapes: dict, experiment_sweep: dict,
-                 bag_sweep: dict) -> str:
+                 bag_sweep: dict, lane_launches: dict, lane_max_err: float,
+                 lane_shapes: dict) -> str:
     """The JSON ``kernels`` line: one bench sweep's sums of its four shapes
     in ms (``ms`` the wrapper's call time, as in earlier lines;
     ``device_ms`` the kernel's own), the per-shape µs, the launches of each
     driven path (``launches`` their sum), and the kernel's device and call
     ms per experiment sweep and per bag-replay sweep from their calls per
-    sweep by shape."""
+    sweep by shape. A second entry, ``knn5_f32_lanes``, is the same kernel
+    through its lane entry (``knn_cuda_lanes``, one launch for 8 lanes):
+    one bench sweep of 8 lanes, its launches on the lane path."""
     bench = {f"{Q}x{M}": shapes[f"{Q}x{M}"] for Q, M in MAIN_PATH_SHAPES}
     total = lambda key: sum(r[key] for r in bench.values()) * 1e-3
     per_sweep = lambda calls: {
@@ -493,6 +669,28 @@ def kernels_line(card: str, launches: dict, max_err: float,
         "per_shape_us": shapes,
         "experiment_sweep": per_sweep(experiment_sweep),
         "bag_sweep": per_sweep(bag_sweep),
+        "card": card}, {
+        "name": "knn5_f32_lanes", "route": "cuda",
+        "source": "vil_sensor_fusion_tpu_torch/csrc/knn.cu",
+        "replaces": "vil_sensor_fusion_tpu/ops/knn.py:114",
+        "launches": sum(lane_launches.values()),
+        "launches_by_path": lane_launches,
+        "max_abs_err": lane_max_err,
+        "ms": sum(r["call_us"] for r in lane_shapes.values()) * 1e-3,
+        "plain_ms": sum(r["plain_us"] for r in lane_shapes.values()) * 1e-3,
+        "bound_ms": sum(r["bound_us"] for r in lane_shapes.values()) * 1e-3,
+        "bound_by": "operations",
+        "library_ms":
+            sum(r["library_us"] for r in lane_shapes.values()) * 1e-3,
+        "library_call": "torch.bmm + torch.topk (ties aside)",
+        "plain_call": "knn_torch_lanes (knn_torch per lane)",
+        "ms_of": f"one bench sweep of {KNN_LANES} lanes: sum of the 4 "
+                 "main-path shapes, one launch each; timed as the single "
+                 "entry's",
+        "device_ms":
+            sum(r["device_us"] for r in lane_shapes.values()) * 1e-3,
+        "host_ms": sum(r["host_us"] for r in lane_shapes.values()) * 1e-3,
+        "per_shape_us": lane_shapes,
         "card": card}]})
 
 
@@ -1778,6 +1976,149 @@ def replay_bag_photometric(dev, tmp: Path, geo: dict) -> dict:
             "max_err": max_err}
 
 
+# --------------------------------------------------------------------------
+# Phase 11: cli bench, every stage over 8 lanes
+# --------------------------------------------------------------------------
+
+BENCH_LANES = 8         # the bench's BATCH (bench.py:64), 8 town seeds
+BENCH_DURATION = 0.6    # s per lane: 6 sweeps and 12 frames, 18 events
+BENCH_REPS = 1
+
+
+def as_run(out, b: int | None = None):
+    """A ``bench.PassOutput`` (lane ``b`` of it, when given) in
+    :func:`compare_runs`'s (frames, result) form."""
+    pick = (lambda t: t) if b is None else (lambda t: t[b])  # noqa: E731
+    return (_tree.tree_map(pick, out.frames), types.SimpleNamespace(
+        vio_out=_tree.tree_map(pick, out.vio),
+        lidar_out=_tree.tree_map(pick, out.lidar),
+        fused=_tree.tree_map(pick, out.fused)))
+
+
+def drive_bench_lanes(dev) -> dict:
+    """Phase 11: ``cli.main(["bench", ...])`` on the card at the bench's
+    rig, 8 distinct town seeds as lanes over BENCH_DURATION s, one timed
+    pass. The inputs of every lane-batched k-NN call of its cold pass are
+    kept; the run's ``bench.BenchResult`` and stdout line are read back."""
+    from vil_sensor_fusion_tpu_torch import bench as BN
+
+    seen, calls, passes = {}, [], [0]
+    lanes_kernel = K.knn_cuda_lanes
+
+    def record(q, t, m, k=K.K_DEFAULT):
+        if passes[0] == 1:
+            calls.append((q.clone(), t.clone(), m.clone()))
+        return lanes_kernel(q, t, m, k)
+
+    def count_passes(fn):
+        def counted(*a, **kw):
+            passes[0] += 1
+            return fn(*a, **kw)
+        return counted
+
+    def keep(fn):
+        return lambda **kw: seen.setdefault("res", fn(**kw))
+
+    out = io.StringIO()
+    argv = ["bench", "--lanes", str(BENCH_LANES), "--duration",
+            str(BENCH_DURATION), "--reps", str(BENCH_REPS), "--device",
+            str(dev)]
+    sync = _sync_of(dev)
+    sync()
+    K.KERNEL_LAUNCHES = 0
+    K.LANE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with wrapped((K, "knn_cuda_lanes", lambda fn: record),
+                 (BN, "lanes_pass", count_passes),
+                 (BN, "main", keep)), contextlib.redirect_stdout(out):
+        cli.main(argv)
+    sync()
+    wall = time.perf_counter() - t0
+    lane_launches = K.LANE_LAUNCHES
+    res = seen["res"]
+    lines = out.getvalue().strip().splitlines()
+    line = json.loads(lines[-1])
+    x, o, o1, diag = res.inputs, res.lanes_out, res.single_out, res.diag
+    B, T_l, T_v = BENCH_LANES, len(x.lidar_times), len(x.vio_times)
+    ates = {
+        "vio_ate_m": [ate(o.vio.pose[b].cpu().numpy(), x.gt_vio[b])
+                      for b in range(B)],
+        "lidar_ate_m": [ate(o.lidar.pose[b].cpu().numpy(), x.gt_lidar[b])
+                        for b in range(B)],
+        "fused_ate_m": [ate(o.fused.poses[b].cpu().numpy(), x.gt_events[b])
+                        for b in range(B)]}
+    nums = {"argv": argv, "line": line, "cli_wall_s": wall,
+            "lanes": B, "sweeps": T_l, "frames": T_v,
+            "events_per_lane": T_l + T_v,
+            "events_per_s": diag["events_per_s"],
+            "wall_s_per_batched_pass": diag["wall_s_per_batched_pass"],
+            "single_stream_wall_s": diag["single_stream_wall_s"],
+            "single_stream_events_per_s": diag["single_stream_events_per_s"],
+            "stages_ms_batched": diag["stages_ms_batched"],
+            "stages_ms_single": diag["stages_ms_single"],
+            "knn_launches_per_pass": diag["knn_launches_per_pass"],
+            "knn_launches_per_single_pass":
+                diag["knn_launches_per_single_pass"],
+            "lane_launches": lane_launches,
+            "knn_microbench": diag["knn_kernel"],
+            "live_share": [float(o.frames.obs_valid[b, 2:].mean())
+                           for b in range(B)],
+            "keep_share": [float(o.gate.keep[b].mean()) for b in range(B)],
+            **ates,
+            "lane0_vs_single": compare_runs(as_run(o, 0), as_run(o1), T_l)}
+    print("  " + json.dumps(nums), flush=True)
+    check(len(lines) == 1 and set(line) == {"metric", "value", "unit",
+                                            "vs_baseline"}
+          and line["metric"] == "full_vil_events_per_s_per_chip"
+          and np.isfinite(line["value"]) and line["value"] > 0,
+          f"cli bench printed {lines}")
+    check(tuple(o.fused.poses.shape) == (B, T_l + T_v, 7),
+          f"lane fused poses shape {tuple(o.fused.poses.shape)}")
+    check(bool(torch.isfinite(o.fused.poses).all()),
+          "non-finite fused pose in a lane")
+    for b in range(B):
+        check(ates["vio_ate_m"][b] < 0.5,
+              f"lane {b} VIO ATE {ates['vio_ate_m'][b]} m")
+        check(ates["lidar_ate_m"][b] < 0.5,
+              f"lane {b} LiDAR ATE {ates['lidar_ate_m'][b]} m")
+        check(ates["fused_ate_m"][b] < 1.0,
+              f"lane {b} fused ATE {ates['fused_ate_m'][b]} m")
+    check(diag["knn_launches_per_pass"] == 4 * T_l,
+          f"{diag['knn_launches_per_pass']} k-NN launches per pass, want 4 "
+          f"per sweep for all lanes ({4 * T_l}), not per lane "
+          f"({4 * T_l * B})")
+    check(lane_launches == (1 + BENCH_REPS) * 4 * T_l,
+          f"{lane_launches} lane-kernel launches, want "
+          f"{(1 + BENCH_REPS) * 4 * T_l}")
+    check(len(calls) == 4 * T_l, f"{len(calls)} lane k-NN calls recorded")
+    for k, tol in CROSS_TOL.items():
+        v = nums["lane0_vs_single"][k]
+        check(v <= tol, f"lane 0 vs single {k} {v} > {tol}")
+    return {"numbers": nums, "knn_calls": calls}
+
+
+def check_lane_knn_calls(calls: list) -> float:
+    """The lane kernel against knn_torch_lanes on the inputs of a run's
+    lane-batched k-NN calls; one line per shape. Returns the largest
+    |Δd²|."""
+    by_shape: dict = {}
+    for n, (q, t, m) in enumerate(calls):
+        _, _, err, tol, sep = compare_knn_lanes(f"lane call {n}", q, t, m)
+        row = by_shape.setdefault(tuple(q.shape[:2]) + (t.shape[1],),
+                                  [0, 0.0, 0.0, 0, 0])
+        row[0] += 1
+        row[1] = max(row[1], err)
+        row[2] = max(row[2], tol)
+        row[3] += int(sep.sum())
+        row[4] += sep.numel()
+    for (B, Q, M), (n, err, tol, n_sep, n_slots) in sorted(by_shape.items()):
+        print(f"  lanes {B}x{Q:5d}x{M:<5d} {n:3d} calls ok   max|Δd²| "
+              f"{err:.3g}  (tol {tol:.3g})  indices checked at the {n_sep} "
+              f"of {n_slots} slots whose neighbours are separated",
+              flush=True)
+    return max(r[1] for r in by_shape.values())
+
+
 def main() -> int:
     # Phase 1: the device.
     if not torch.cuda.is_available():
@@ -1803,8 +2144,14 @@ def main() -> int:
     # Phase 3: kernel vs plain, then its times at the main-path shapes.
     print("[kernel vs plain] k-NN, k=5", flush=True)
     max_err = check_knn_cases(dev)
+    print(f"[kernel vs plain, lanes] k-NN, k=5, {KNN_LANES} lanes in one "
+          f"launch", flush=True)
+    lane_max_err = check_knn_lane_cases(dev)
     print("[kernel times] k-NN, k=5, us per call", flush=True)
     shapes = time_knn_shapes(dev)
+    print(f"[kernel times, lanes] k-NN, k=5, {KNN_LANES} lanes, us per call",
+          flush=True)
+    lane_shapes = time_knn_lane_shapes(dev)
 
     # Phase 4: the image-driven full path on the card.
     cfg, fcfg = main_path_config()
@@ -1862,16 +2209,31 @@ def main() -> int:
     tmp_dir.cleanup()
     max_err = max(max_err, photo["max_err"])
 
+    # Phase 11: cli bench, every stage batched over 8 lanes.
+    print(f"[bench lanes] cli bench --lanes {BENCH_LANES} --duration "
+          f"{BENCH_DURATION} --reps {BENCH_REPS}: {BENCH_LANES} town seeds "
+          f"at {CAM_W}x{CAM_H}, every stage over the lanes", flush=True)
+    bench = drive_bench_lanes(dev)
+    print(f"[kernel vs plain on the bench lanes] the cold pass's "
+          f"{len(bench['knn_calls'])} lane k-NN calls", flush=True)
+    lane_max_err = max(lane_max_err,
+                       check_lane_knn_calls(bench.pop("knn_calls")))
+
     launches = {"town_image_drive": launches_4}
     launches.update({f"experiments_{k}": c["launches"]
                      for k, c in exp["cells"].items()})
     launches["bag_replay"] = bag["numbers"]["launches"]
     launches["sharded_lidar_step"] = par["numbers"]["model"]["launches"]
     launches["bag_replay_photometric"] = photo["numbers"]["launches"]
+    bn = bench["numbers"]
+    launches["bench_single_stream"] = ((1 + BENCH_REPS)
+                                       * bn["knn_launches_per_single_pass"])
     print(f"card: {card}")
     print(kernels_line(card, launches, max_err, shapes,
                        exp["knn_calls_per_sweep"],
-                       bag["numbers"]["knn_calls_per_sweep"]))
+                       bag["numbers"]["knn_calls_per_sweep"],
+                       {"bench_lanes": bn["lane_launches"]}, lane_max_err,
+                       lane_shapes))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

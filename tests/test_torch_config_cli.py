@@ -10,8 +10,8 @@
 - ``record`` → ``run --bag`` (geometric and photometric VIO) and ``run
   --scenario`` run in-process on the CPU (``--device cpu``) and print the
   JAX CLI's keys; ``--model-devices 2``
-  in a world of one process and ``bench`` raise; ``experiments`` builds
-  the JAX grids' spec lists.
+  in a world of one process and ``bench --lanes 0`` raise; ``experiments``
+  builds the JAX grids' spec lists.
 """
 
 import dataclasses
@@ -308,8 +308,10 @@ def test_run_scenario_on_cpu(tmp_path, capsys):
                  id="argv0-item 9"),
     pytest.param(["run", "--bag", "x.bag", "--model-devices", "2"],
                  RuntimeError, "world of 2 processes", id="argv1-item 9"),
-    pytest.param(["bench"], NotImplementedError, "item 8",
-                 id="argv2-item 8"),
+    # bench is ported (tests/test_torch_bench.py runs it); it refuses a
+    # run with no lanes before building anything.
+    pytest.param(["bench", "--lanes", "0", "--device", "cpu"], ValueError,
+                 "lanes >= 1", id="argv2-item 8"),
 ])
 def test_unported_commands_raise(argv, error, match):
     with pytest.raises(error, match=match):

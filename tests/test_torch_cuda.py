@@ -130,3 +130,120 @@ def test_score_series_on_the_card_matches_the_cpu(dev):
                 assert torch.equal(cls(a), cls(b)), name
             fin = torch.isfinite(b)
             torch.testing.assert_close(a[fin], b[fin], rtol=1e-9, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# The lane entry: B searches of one shape in one launch
+# ---------------------------------------------------------------------------
+
+LANE_SHAPES = [(192, 1920), (384, 3984), (1920, 2048), (3984, 4096),
+               *ONE_PAST, (1, 6)]
+
+
+def _lanes(Q, M, dev, B=8, seed=0):
+    """B lanes, each its own clouds and its own mask density."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.rand(B, Q, 3, generator=g) * 40 + 100
+    t = torch.rand(B, M, 3, generator=g) * 40 + 100
+    m = (torch.rand(B, M, generator=g)
+         > torch.linspace(0.05, 0.75, B)[:, None]).float()
+    return q.to(dev), t.to(dev), m.to(dev)
+
+
+@pytest.mark.parametrize("shape", LANE_SHAPES)
+def test_knn_cuda_lanes_equals_each_lanes_single_search(dev, shape):
+    """One launch for 8 lanes gives, lane for lane, the single-search
+    kernel's bits (a result does not depend on the grid), and
+    ``knn_torch_lanes`` within the tolerance above."""
+    q, t, m = _lanes(*shape, dev)
+    before, lanes_before = K.KERNEL_LAUNCHES, K.LANE_LAUNCHES
+    i_k, d_k = K.knn_cuda_lanes(q, t, m)
+    torch.cuda.synchronize()
+    assert (K.KERNEL_LAUNCHES, K.LANE_LAUNCHES) == (before + 1,
+                                                    lanes_before + 1)
+    i_p, d_p = K.knn_torch_lanes(q, t, m)
+    tol = 4 * torch.finfo(torch.float32).eps * float(
+        (q * q).sum(-1).max() + (t * t).sum(-1).max())
+    fin = torch.isfinite(d_p)
+    assert torch.equal(torch.isfinite(d_k), fin)
+    assert not fin.any() or float((d_k - d_p)[fin].abs().max()) <= tol
+    for b in range(q.shape[0]):
+        i_1, d_1 = K.knn_cuda(q[b], t[b], m[b])
+        assert torch.equal(i_1, i_k[b]) and torch.equal(d_1, d_k[b])
+
+
+def test_knn_lanes_one_valid_target_and_ties_across_splits(dev):
+    q, t, m = _lanes(384, 3984, dev)
+    m[5] = 0.0
+    m[5, 1234] = 1.0
+    idx, d2 = K.knn_cuda_lanes(q, t, m)
+    assert idx[5, :, 0].eq(1234).all() and idx[5, :, 1:].eq(0).all()
+    assert bool(torch.isinf(d2[5, :, 1:]).all())
+    _, t, _ = _lanes(8, 4096, dev)
+    sel = torch.stack([(torch.tensor(SEL) + b) % 2048 for b in range(8)])
+    for b in range(8):
+        t[b, 2048 + sel[b]] = t[b, sel[b]]
+    q = torch.stack([t[b, sel[b]] for b in range(8)])
+    idx, _ = K.knn_cuda_lanes(q, t, torch.ones(8, 4096, device=dev))
+    assert torch.equal(idx[..., :2].cpu().long(),
+                       torch.stack([sel, sel + 2048], -1))
+
+
+def test_vmap_of_knn_is_one_lane_launch(dev):
+    """``torch.func.vmap(ops.knn.knn)`` on CUDA tensors goes through the
+    custom op's batching rule: one lane launch for all lanes, an unbatched
+    target set expanded to every lane."""
+    q, t, m = _lanes(384, 3984, dev, B=4)
+    before = K.LANE_LAUNCHES
+    idx, d2 = torch.func.vmap(K.knn)(q, t, m)
+    i_l, d_l = K.knn_cuda_lanes(q, t, m)
+    assert K.LANE_LAUNCHES == before + 2
+    assert torch.equal(idx, i_l) and torch.equal(d2, d_l)
+    idx, _ = torch.func.vmap(K.knn, in_dims=(0, None, None))(q, t[0], m[0])
+    for b in range(4):
+        assert torch.equal(idx[b], K.knn_cuda(q[b], t[0], m[0])[0])
+
+
+def test_odometry_run_lanes_on_the_card(dev):
+    """Two drives through ``odometry.run_lanes`` on the card: 4 k-NN
+    launches per sweep for both lanes together, each lane equal to its
+    single ``odometry.run`` on the card within the f32 band of
+    tests/test_torch_lidar.py (1e-2 m; n_corr 2% + 8)."""
+    from vil_sensor_fusion_tpu_torch import _tree
+    from vil_sensor_fusion_tpu_torch.core import lie
+    from vil_sensor_fusion_tpu_torch.data import raycast as R
+    from vil_sensor_fusion_tpu_torch.frontends import lidar as L
+    from vil_sensor_fusion_tpu_torch.frontends.lidar import voxelmap as vm
+
+    cfg = L.LidarOdomConfig(
+        icp=L.IcpConfig(iters=3, degen_eigval=5.0, fit_every=4,
+                        final_refresh=False, eig_sweeps=3),
+        odom_icp=L.IcpConfig(iters=4, max_corr_dist=2.0, degen_eigval=5.0,
+                             fit_every=4, final_refresh=False, eig_sweeps=3),
+        corner_map=vm.VoxelMapConfig(capacity=4096, leaf=0.2),
+        surf_map=vm.VoxelMapConfig(capacity=8192, leaf=0.4),
+        submap_corners=512, submap_surfs=1024,
+        two_stage=True, undistort=True, guess_is_delta=True)
+    T, lanes = 3, []
+    for seed, v in ((2, 0.4), (3, 0.35)):
+        world = R.town_world(n_boxes=24, seed=seed, device=dev)
+        poses = torch.stack([lie.pose_make(
+            lie.so3_exp_quat(torch.tensor([0.0, 0.0, 0.02 * v * i],
+                                          device=dev)),
+            torch.tensor([v * i, 0.05 * v * i, 1.5], device=dev))
+            for i in range(T)])
+        prev = torch.cat([poses[:1], poses[:-1]])
+        lanes.append((L.odometry.init(cfg, pose0=poses[0]),
+                      R.sweep_series(world, poses),
+                      lie.pose_between(prev, poses)))
+    st, sw, g = (_tree.tree_map(lambda *x: torch.stack(x), *f)
+                 for f in zip(*lanes))
+    before, lanes_before = K.KERNEL_LAUNCHES, K.LANE_LAUNCHES
+    _, out = L.odometry.run_lanes(cfg, st, sw, g)
+    torch.cuda.synchronize()
+    assert K.LANE_LAUNCHES - lanes_before == 4 * T
+    assert K.KERNEL_LAUNCHES - before == 4 * T
+    for b, (s1, w1, g1) in enumerate(lanes):
+        _, o1 = L.odometry.run(cfg, s1, w1, g1)
+        assert float((out.pose[b] - o1.pose).abs().max()) < 1e-2
+        assert torch.allclose(out.n_corr[b], o1.n_corr, rtol=2e-2, atol=8)

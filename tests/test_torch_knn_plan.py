@@ -82,3 +82,27 @@ def test_knn_cuda_refuses_cpu_tensors():
     before = K.KERNEL_LAUNCHES
     K.knn(q, t, m)
     assert K.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape", MAIN_PATH_SHAPES + [(1, 6), (77, 4097)])
+@pytest.mark.parametrize("B", [2, 8])
+def test_lane_plans_cover_every_lane_and_fill_the_card(shape, B):
+    """B lanes of one shape in one grid: the same split and tile rules
+    per lane, B × tiles × splits blocks, no more (lane, query tile) pairs
+    than the ticket buffer holds, and the bench's 8 lanes at their four
+    shapes at least as many blocks as one lane gets (~2 per SM)."""
+    Q, M = shape
+    p = K._plan(Q, M, B)
+    assert p.lanes == B and p.blocks == B * p.query_tiles * p.n_splits
+    assert (p.query_tiles - 1) * p.query_tile < Q <= (p.query_tiles
+                                                      * p.query_tile)
+    assert (p.n_splits - 1) * p.split_len < M <= p.n_splits * p.split_len
+    assert p.split_len % 4 == 0
+    assert B * p.query_tiles <= K.MAX_QUERY_TILES
+    if B == 8 and shape in MAIN_PATH_SHAPES:
+        assert p.blocks >= 0.7 * K.TARGET_BLOCKS, p
+
+
+def test_one_lane_plans_are_the_single_plans():
+    for Q, M in MAIN_PATH_SHAPES + RAGGED_SHAPES:
+        assert K._plan(Q, M, 1) == K._plan(Q, M)

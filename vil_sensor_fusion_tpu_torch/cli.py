@@ -21,6 +21,9 @@ output keys:
       rewrite record times := header stamps
   python -m vil_sensor_fusion_tpu_torch.cli experiments --smoke
       the degeneracy-experiment grid with per-run reports
+  python -m vil_sensor_fusion_tpu_torch.cli bench
+      full-pipeline throughput at the reference rig, 8 distinct sequences
+      as lanes (``bench.py`` of this package; one JSON line on stdout)
 
 ``--device`` (default ``cuda``) names the device the subcommands that
 compute run on; ``--device cpu`` runs them on the host.
@@ -33,8 +36,7 @@ ranks (``parallel.ops.make_sharded_register``); N > 1 needs a
       --model-devices N ...
 
 Every rank runs the whole command; rank 0 alone prints the JSON and
-writes the checkpoint. Not ported yet: ``bench`` (the H100 twin of
-``bench.py``, ROADMAP.md Queue 1); it raises.
+writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -328,9 +330,10 @@ def cmd_experiments(args):
 
 
 def cmd_bench(args):
-    raise NotImplementedError(
-        "bench (the H100 twin of bench.py) is not ported yet: ROADMAP.md "
-        "Queue 1 item 8")
+    from . import bench
+
+    bench.main(lanes=args.lanes, duration=args.duration, reps=args.reps,
+               device=args.device)
 
 
 def _device_arg(p):
@@ -397,8 +400,15 @@ def main(argv=None):
     _device_arg(pf)
     pf.set_defaults(fn=cmd_fuse_bag)
 
-    pb = sub.add_parser("bench", help="per-chip throughput benchmark "
-                                      "(not ported yet: raises)")
+    pb = sub.add_parser("bench", help="per-chip full-pipeline throughput "
+                                      "over distinct sequences as lanes")
+    pb.add_argument("--lanes", type=int, default=8,
+                    help="distinct town sequences batched as lanes")
+    pb.add_argument("--duration", type=float, default=4.0,
+                    help="seconds per sequence")
+    pb.add_argument("--reps", type=int, default=3,
+                    help="timed passes after the warm one")
+    _device_arg(pb)
     pb.set_defaults(fn=cmd_bench)
 
     pe = sub.add_parser(

@@ -14,12 +14,16 @@
 // H100 SXM), compute-bound at every main-path shape (3984 x 4096: 1.95
 // us); the bytes, 12 Q + 16 M + 40 Q, take under 0.1 us at 3.35 TB/s.
 //
-// Design. One launch per call, grid = (target splits, query tiles), 256
-// threads; each warp owns R = 1 or 2 queries. The host plans R and the
-// split count (ops/knn.py:_plan) for about two blocks per SM. Query tiles
-// sit in grid.y, so a call takes at most 65,535 of them (Q <= 1,048,560 at
-// R = 2); the wrapper refuses more, and its ticket buffer has one entry
-// per tile the grid can hold.
+// Design. One launch per call, grid = (target splits, query tiles, lanes),
+// 256 threads; each warp owns R = 1 or 2 queries. The host plans R and the
+// split count (ops/knn.py:_plan) for about two blocks per SM over all
+// lanes. A lane is one independent search (its own queries, targets, mask,
+// outputs and split scratch, B of them back to back in memory): the
+// counterpart of the batch grid axis that pallas_call gains under
+// jax.vmap, so B searches of one shape take one launch. Query tiles sit in
+// grid.y and lanes in grid.z; a call takes at most 65,535 (lane, query
+// tile) pairs, since the ticket buffer has one entry per pair; the
+// wrapper refuses more.
 //   * Staging: each block copies its contiguous target split in tiles of
 //     up to 1,024 targets with cp.async (16 bytes a thread where aligned)
 //     and folds them into float4(x, y, z, ||t||^2, or +inf if masked). The
@@ -221,19 +225,27 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 template <int R>
 __global__ void __launch_bounds__(THREADS)
-knn5_kernel(const float* __restrict__ queries,   // (Q, 3)
-            const float* __restrict__ targets,   // (M, 3)
-            const float* __restrict__ t_mask,    // (M,)  > 0 = valid
+knn5_kernel(const float* __restrict__ queries,   // (B, Q, 3)
+            const float* __restrict__ targets,   // (B, M, 3)
+            const float* __restrict__ t_mask,    // (B, M)  > 0 = valid
             int Q, int M, int split_len,
-            int* __restrict__ out_idx,           // (Q, K)
-            float* __restrict__ out_dist,        // (Q, K)
-            u64* __restrict__ scratch,           // (Q, splits, K)
-            unsigned* __restrict__ tickets) {    // (query tiles,), zeroed
+            int* __restrict__ out_idx,           // (B, Q, K)
+            float* __restrict__ out_dist,        // (B, Q, K)
+            u64* __restrict__ scratch,           // (B, Q, splits, K)
+            unsigned* __restrict__ tickets) {    // (B, query tiles), zeroed
   extern __shared__ float4 smem[];
   const int cap = min(TILE, split_len);
   const int padded = (cap + STEP - 1) / STEP * STEP + STEP;
   float4* folded = smem;                                 // (padded,)
   float* raw = reinterpret_cast<float*>(smem + padded);  // xyz (3 cap), mask
+
+  // This block's lane: every array below is that lane's.
+  const size_t b = blockIdx.z;
+  queries += b * Q * 3;
+  targets += b * M * 3;
+  t_mask += b * M;
+  out_idx += b * Q * K;
+  out_dist += b * Q * K;
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -368,6 +380,8 @@ knn5_kernel(const float* __restrict__ queries,   // (Q, 3)
     write_out(q0, Q, lane, res, out_idx, out_dist);
     return;
   }
+  scratch += b * Q * n_splits * K;
+  unsigned* ticket = tickets + b * gridDim.y + blockIdx.y;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int q = q0 + r;
@@ -382,8 +396,8 @@ knn5_kernel(const float* __restrict__ queries,   // (Q, 3)
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    last = atomicAdd(&tickets[blockIdx.y], 1u) == n_splits - 1u;
-    if (last) tickets[blockIdx.y] = 0u;  // ready for the next launch
+    last = atomicAdd(ticket, 1u) == n_splits - 1u;
+    if (last) *ticket = 0u;  // ready for the next launch
   }
   __syncthreads();
   if (!last) return;
@@ -406,24 +420,27 @@ knn5_kernel(const float* __restrict__ queries,   // (Q, 3)
 
 }  // namespace
 
-// Plain-C entry point for ctypes. `rows` = queries per warp (R), the grid
-// is (n_splits, ceil(Q / (8 R))), at most 65,535 query tiles; `scratch`
-// and `tickets` are read only when n_splits > 1 (one ticket per query
-// tile, zeroed before the first launch; the kernel leaves them zeroed). Launches on `stream` and returns the launch's
-// cudaError_t (0 = success); never synchronises.
+// Plain-C entry point for ctypes: B lanes of Q queries and M targets
+// each. `rows` = queries per warp (R), the grid is (n_splits,
+// ceil(Q / (8 R)), B), at most 65,535 (lane, query tile) pairs; `scratch`
+// and `tickets` are read only when n_splits > 1 (one ticket per pair,
+// zeroed before the first launch; the kernel leaves them zeroed). Launches
+// on `stream` and returns the launch's cudaError_t (0 = success); never
+// synchronises.
 extern "C" int knn5_f32(const float* queries, const float* targets,
-                        const float* t_mask, int Q, int M, int rows,
+                        const float* t_mask, int B, int Q, int M, int rows,
                         int n_splits, int split_len, int* out_idx,
                         float* out_dist, u64* scratch, unsigned* tickets,
                         void* stream) {
-  if (Q <= 0) return 0;
+  if (Q <= 0 || B <= 0) return 0;
   if (M <= 0 || n_splits <= 0 || split_len <= 0 ||
       static_cast<long long>(n_splits - 1) * split_len >= M ||
       static_cast<long long>(n_splits) * split_len < M)
     return static_cast<int>(cudaErrorInvalidValue);  // empty or missing split
   const int q_tile = WARPS * rows;
-  const dim3 grid(n_splits, (Q + q_tile - 1) / q_tile);
-  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(n_splits, (Q + q_tile - 1) / q_tile, B);
+  if (static_cast<long long>(grid.y) * grid.z > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int cap = min(TILE, split_len);
   const size_t smem =
       sizeof(float4) * ((cap + STEP - 1) / STEP * STEP + STEP + cap);

@@ -56,7 +56,8 @@ def logdet_gate(
     n_corr: torch.Tensor | None = None,
 ) -> GateResult:
     """Gate batched 6x6 Hessians (rho/theta order: translation block
-    [0:3,0:3], rotation block [3:6,3:6])."""
+    [0:3,0:3], rotation block [3:6,3:6]) of any leading axes: a drive's
+    (T, 6, 6), or B lanes' (B, T, 6, 6) with ``n_corr`` (B, T)."""
     ld_rot = _logdet3(hessian[..., 3:6, 3:6])
     ld_trans = _logdet3(hessian[..., 0:3, 0:3])
     if cfg.normalize_per_corr:

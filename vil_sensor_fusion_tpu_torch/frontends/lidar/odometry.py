@@ -265,3 +265,17 @@ def run(
     has_map = (torch.arange(T, device=init0.device) > 0) | (init0 > 0)
     cov = _covariance(cfg, res.hessian, res.cost, res.n_corr, has_map)
     return state, res._replace(cov=cov)
+
+
+def run_lanes(
+    cfg: LidarOdomConfig,
+    state: LidarOdomState,         # every leaf with a leading lane axis B
+    sweeps: Sweep,                 # (B, T, R, A, ·)
+    pose_guesses: torch.Tensor,    # (B, T, 7)
+) -> tuple[LidarOdomState, LidarOdomResult]:
+    """B drives at once, one set of ops per sweep for all lanes: what
+    ``jax.vmap(lambda st, sw, g: run(cfg, st, sw, g))`` computes (the
+    bench's LiDAR stage). On the card each k-NN search of a sweep is one
+    kernel launch for all lanes (``ops.knn``'s batching rule)."""
+    return torch.func.vmap(lambda st, sw, g: run(cfg, st, sw, g))(
+        state, sweeps, pose_guesses)

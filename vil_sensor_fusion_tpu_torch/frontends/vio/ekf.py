@@ -179,21 +179,24 @@ def propagate(
     Ra = R @ lie.hat(a_c)
     d1 = dt[:, None, None]
     I3 = torch.eye(3, dtype=dtype, device=device).expand(N, 3, 3)
-    F = torch.zeros((N, IMU_DIM, IMU_DIM), dtype=dtype, device=device)
-    F[:, 0:3, 0:3] = dRk.mT
-    F[:, 0:3, 12:15] = -Jr * d1
-    F[:, 3:6, 0:3] = -0.5 * Ra * d1 * d1
-    F[:, 3:6, 3:6] = I3
-    F[:, 3:6, 6:9] = I3 * d1
-    F[:, 3:6, 9:12] = -0.5 * R * d1 * d1
-    F[:, 6:9, 0:3] = -Ra * d1
-    F[:, 6:9, 6:9] = I3
-    F[:, 6:9, 9:12] = -R * d1
-    F[:, 9:15, 9:15] = torch.eye(6, dtype=dtype, device=device)
-    G = torch.zeros((N, IMU_DIM, 6), dtype=dtype, device=device)
-    G[:, 0:3, 0:3] = Jr * d1
-    G[:, 3:6, 3:6] = 0.5 * R * d1 * d1
-    G[:, 6:9, 3:6] = R * d1
+    Z3 = torch.zeros((N, 3, 3), dtype=dtype, device=device)
+    # F and G are built block by block with ``cat`` (the values JAX's
+    # ``.at[].set`` writes), so they carry a lane axis under vmap.
+    F = torch.cat([
+        torch.cat([dRk.mT, Z3, Z3, Z3, -Jr * d1], -1),
+        torch.cat([-0.5 * Ra * d1 * d1, I3, I3 * d1, -0.5 * R * d1 * d1, Z3],
+                  -1),
+        torch.cat([-Ra * d1, Z3, I3, -R * d1, Z3], -1),
+        torch.cat([torch.zeros((N, 6, 9), dtype=dtype, device=device),
+                   torch.eye(6, dtype=dtype, device=device).expand(N, 6, 6)],
+                  -1),
+    ], -2)
+    G = torch.cat([
+        torch.cat([Jr * d1, Z3], -1),
+        torch.cat([Z3, 0.5 * R * d1 * d1], -1),
+        torch.cat([Z3, R * d1], -1),
+        torch.zeros((N, 6, 6), dtype=dtype, device=device),
+    ], -2)
     q_g = (cfg.cov_gyro / dt)[:, None].expand(N, 3)
     q_a = (cfg.cov_accel / dt)[:, None].expand(N, 3)
     Q = G @ torch.diag_embed(torch.cat([q_g, q_a], 1)) @ G.mT
@@ -294,10 +297,10 @@ def update(
     R_dep = cfg.depth_sigma_update ** 2
     use_d = cfg.use_depth_update and obs_depth is not None
     s0 = s
-    R_rows = torch.full((3 * M if use_d else 2 * M,), R_pix, dtype=dtype,
-                        device=device)
+    R_rows = torch.full((2 * M,), R_pix, dtype=dtype, device=device)
     if use_d:
-        R_rows[2 * M:] = R_dep
+        R_rows = torch.cat([R_rows, torch.full((M,), R_dep, dtype=dtype,
+                                               device=device)])
 
     def h_of(dx):
         p_cam = _landmarks_in_camera(cfg, _retract(cfg, s0, dx))
@@ -419,9 +422,9 @@ def gravity_update(
                        device=device), 1e12)
 
     # Right perturbation R ← R·Exp(δθ): h ≈ pred + g·[u]× δθ + δb_a.
-    H = torch.zeros((3, D), dtype=dtype, device=device)
-    H[:, 0:3] = cfg.gravity * lie.hat(u)
-    H[:, 9:12] = I3
+    H = torch.cat([cfg.gravity * lie.hat(u),
+                   torch.zeros((3, 6), dtype=dtype, device=device), I3,
+                   torch.zeros((3, D - 12), dtype=dtype, device=device)], 1)
     return _gated_update(cfg, s, H, r, R_eff)
 
 
@@ -436,8 +439,8 @@ def zero_velocity_update(
     dtype, device = s.pose.dtype, s.pose.device
     D = s.cov.shape[0]
     I3 = torch.eye(3, dtype=dtype, device=device)
-    H = torch.zeros((3, D), dtype=dtype, device=device)
-    H[:, 6:9] = I3
+    H = torch.cat([torch.zeros((3, 6), dtype=dtype, device=device), I3,
+                   torch.zeros((3, D - 9), dtype=dtype, device=device)], 1)
     r = -s.vel
     S_nom = H @ s.cov @ H.mT + cfg.zuv_sigma ** 2 * I3
     chi2 = r @ _solve(S_nom, r)
@@ -523,11 +526,15 @@ def init_landmarks(
     keep = torch.cat([torch.ones(IMU_DIM, dtype=dtype, device=device),
                       torch.repeat_interleave(1.0 - e, 3)])
     cov = s.cov * keep[None, :] * keep[:, None]
-    blocks = cov[IMU_DIM:, IMU_DIM:].view(M, 3, M, 3)
-    slot = torch.arange(M, device=device)
-    blocks[slot, :, slot, :] = (e[:, None, None] * P_l
-                                + (1 - e[:, None, None])
-                                * blocks[slot, :, slot, :])
+    # The diagonal landmark blocks take their new values by a select with
+    # a constant block pattern, so the update carries a lane axis.
+    blocks = cov[IMU_DIM:, IMU_DIM:].reshape(M, 3, M, 3)
+    old = torch.diagonal(blocks, dim1=0, dim2=2).permute(2, 0, 1)  # (M,3,3)
+    new = e[:, None, None] * P_l + (1 - e[:, None, None]) * old
+    on_diag = torch.eye(M, dtype=torch.bool, device=device)[:, None, :, None]
+    blocks = torch.where(on_diag, new[:, :, None, :], blocks)
+    cov = torch.cat([cov[:IMU_DIM], torch.cat(
+        [cov[IMU_DIM:, :IMU_DIM], blocks.reshape(3 * M, 3 * M)], 1)], 0)
     return s._replace(landmarks=lm, lm_valid=valid, cov=cov)
 
 

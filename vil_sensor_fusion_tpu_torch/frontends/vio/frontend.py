@@ -192,7 +192,8 @@ def frontend_step(
 
 
 def pyramids_batch(cfg: FrontendConfig, images: torch.Tensor) -> tuple:
-    """Pyramids of all frames: tuple of (T, h_l, w_l)."""
+    """Pyramids of all frames: tuple of (T, h_l, w_l); of all lanes' frames
+    for (B, T, H, W) images, tuple of (B, T, h_l, w_l)."""
     return tuple(T.pyramid(images, cfg.pyramid_levels))
 
 
@@ -204,7 +205,8 @@ def candidates_batch(
 ):
     """Shi-Tomasi detection + projected sweeps + candidate depths for all
     frames: (cand_uv (T,C,2), cand_score (T,C), cand_depth (T,C),
-    projs (T,P,3))."""
+    projs (T,P,3)). Every op maps over leading axes, so (B, T, ·) inputs
+    give the same for all lanes' frames at once."""
     cand_uv, cand_score = T.detect(images, cfg.n_candidates,
                                    nms_radius=cfg.nms_radius,
                                    border=cfg.border)
@@ -253,6 +255,25 @@ def track_frames(
         obs_uv=obs_uv, obs_valid=obs_valid, obs_depth=obs_depth,
         new_uv=new_uv, new_depth=new_depth, new_enable=new_enable,
     ), ts
+
+
+def track_frames_lanes(
+    cfg: FrontendConfig,
+    pyrs: tuple,                   # L tensors (B, T, h_l, w_l)
+    cand_uv: torch.Tensor,         # (B, T, C, 2)
+    cand_score: torch.Tensor,      # (B, T, C)
+    cand_depth: torch.Tensor,      # (B, T, C)
+    projs: torch.Tensor,           # (B, T, P, 3)
+    imu_windows: tuple,            # (B, T, N, ·) each
+    num_slots: int,
+) -> VioFrameInput:
+    """B image streams through the tracker at once, one set of ops per
+    frame for all lanes: what ``jax.vmap(lambda ...: track_frames(...)[0])``
+    computes (the bench's tracking stage). Frames (B, T, ·)."""
+    def one(py, cu, cs, cd, pj, iw):
+        return track_frames(cfg, py, cu, cs, cd, pj, iw, num_slots)[0]
+    return torch.func.vmap(one)(tuple(pyrs), cand_uv, cand_score,
+                                cand_depth, projs, tuple(imu_windows))
 
 
 def build_frames(

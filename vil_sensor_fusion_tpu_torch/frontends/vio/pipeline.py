@@ -78,3 +78,16 @@ def run(
                       depth_sigma)
         outs.append(out)
     return s, VioOutput(*(torch.stack(f) for f in zip(*outs)))
+
+
+def run_lanes(
+    cfg: E.VioConfig,
+    s: E.VioState,              # every leaf with a leading lane axis B
+    frames: VioFrameInput,      # (B, T, ·)
+    depth_sigma: float = 0.1,
+) -> tuple[E.VioState, VioOutput]:
+    """B frame streams at once, one set of ops per frame for all lanes:
+    what ``jax.vmap(lambda s, f: run(cfg, s, f))`` computes (the bench's
+    VIO stage). Outputs (B, T, ·)."""
+    return torch.func.vmap(lambda s_, f: run(cfg, s_, f, depth_sigma))(
+        s, frames)

@@ -20,7 +20,9 @@ def jacobi_eigh(A: torch.Tensor, sweeps: int = 6):
     order as the JAX version. Works on a private copy of ``A``."""
     n = A.shape[-1]
     A = A.clone()
-    V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    # V carries A's lane axis under ``torch.func.vmap`` (a fresh identity
+    # would not take the lane-dependent columns written into it below).
+    V = torch.zeros_like(A) + torch.eye(n, dtype=A.dtype, device=A.device)
     eps = 1e-30
 
     for _ in range(sweeps):

@@ -1,8 +1,9 @@
 """Exact masked k-nearest-neighbour search for ICP correspondence.
 
-Port of ``vil_sensor_fusion_tpu/ops/knn.py``. Both functions here return
-``(idx (Q, k) int32, dist² (Q, k))``, ascending, with the lowest target
-index first among equal distances and masked targets at +inf:
+Port of ``vil_sensor_fusion_tpu/ops/knn.py``. Every search here returns
+``(idx (Q, k) int32, dist² (Q, k))`` (with a leading lane axis B for the
+lane entries), ascending, with the lowest target index first among equal
+distances and masked targets at +inf:
 
 - :func:`knn_torch` — plain PyTorch: the distance rows
   ‖q‖² − 2q·t + ‖t‖² from one ``torch.matmul``, then k passes of
@@ -12,8 +13,17 @@ index first among equal distances and masked targets at +inf:
   launch per call over a grid of (target splits × query tiles) that
   :func:`_plan` picks on the host.
 
-:func:`knn` routes by device: a CPU tensor goes to :func:`knn_torch`, a CUDA
-tensor to :func:`knn_cuda`, which raises rather than falling back.
+Lanes: :func:`knn_cuda_lanes` runs B independent searches of one shape,
+(B, Q, 3) queries against (B, M, 3) targets, in one launch (the kernel's
+grid gains a lane axis, as ``pallas_call`` gains a batch grid axis under
+``jax.vmap``); :func:`knn_torch_lanes` is its plain twin, ``knn_torch``
+per lane.
+
+:func:`knn` routes by device: a CPU tensor goes to :func:`knn_torch` (which
+``torch.func.vmap`` batches as it stands), a CUDA tensor to the custom op
+``vil_sensor_fusion_tpu_torch::knn5``, which runs :func:`knn_cuda`; under
+``torch.func.vmap`` its batching rule runs :func:`knn_cuda_lanes` once for
+all lanes. Neither falls back to the plain version: they launch or raise.
 """
 
 from __future__ import annotations
@@ -28,9 +38,11 @@ from .. import _build
 
 K_DEFAULT = 5
 
-# Launches of the CUDA kernel by knn_cuda (one per call), for callers that
-# check which path a run went through.
+# Launches of the CUDA kernel by knn_cuda and knn_cuda_lanes (one per
+# call, whatever its lane count), for callers that check which path a run
+# went through; LANE_LAUNCHES counts those of knn_cuda_lanes alone.
 KERNEL_LAUNCHES = 0
+LANE_LAUNCHES = 0
 
 
 def knn_torch(
@@ -57,18 +69,34 @@ def knn_torch(
             torch.stack(dists, dim=1))
 
 
+def knn_torch_lanes(
+    queries: torch.Tensor,     # (B, Q, 3)
+    targets: torch.Tensor,     # (B, M, 3)
+    t_mask: torch.Tensor,      # (B, M)
+    k: int = K_DEFAULT,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`knn_cuda_lanes`: :func:`knn_torch` per lane,
+    results stacked (B, Q, k)."""
+    outs = [knn_torch(q, t, m, k) for q, t, m in zip(queries, targets,
+                                                     t_mask)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
 class Plan(NamedTuple):
-    """The kernel's grid for one call: (n_splits, query_tiles) blocks."""
+    """The kernel's grid for one call: (n_splits, query_tiles, lanes)
+    blocks."""
 
     rows: int           # queries per warp (R: 1 or 2)
     query_tile: int     # queries per block: 8 warps, 8 R
     query_tiles: int
     n_splits: int       # contiguous target splits, none empty
     split_len: int      # targets per split (the last may hold fewer)
+    lanes: int = 1
 
     @property
     def blocks(self) -> int:
-        return self.query_tiles * self.n_splits
+        return self.lanes * self.query_tiles * self.n_splits
 
 
 _WARPS = 8                # warps per block (csrc/knn.cu: THREADS / 32)
@@ -77,28 +105,29 @@ _MIN_SPLIT = 64           # shortest split: 2 targets per lane
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(Q: int, M: int) -> Plan:
-    """The grid for Q queries and M targets (Q, M ≥ 1): two queries per
-    warp once one per warp would already give :data:`TARGET_BLOCKS` query
-    tiles, else one; then the target splits that bring the grid nearest to
-    :data:`TARGET_BLOCKS` blocks, no split shorter than 64 targets, each a
-    multiple of 4 long (16-byte aligned starts)."""
-    rows = 2 if -(-Q // _WARPS) >= TARGET_BLOCKS else 1
+def _plan(Q: int, M: int, B: int = 1) -> Plan:
+    """The grid for B lanes of Q queries and M targets (B, Q, M ≥ 1): two
+    queries per warp once one per warp would already give
+    :data:`TARGET_BLOCKS` (lane, query tile) blocks, else one; then the
+    target splits that bring the grid nearest to :data:`TARGET_BLOCKS`
+    blocks, no split shorter than 64 targets, each a multiple of 4 long
+    (16-byte aligned starts)."""
+    rows = 2 if B * -(-Q // _WARPS) >= TARGET_BLOCKS else 1
     tiles = -(-Q // (_WARPS * rows))
-    splits = max(1, min((TARGET_BLOCKS + tiles // 2) // tiles,
+    splits = max(1, min((TARGET_BLOCKS + B * tiles // 2) // (B * tiles),
                         M // _MIN_SPLIT))
     split_len = -(-M // (4 * splits)) * 4
-    return Plan(rows, _WARPS * rows, tiles, -(-M // split_len), split_len)
+    return Plan(rows, _WARPS * rows, tiles, -(-M // split_len), split_len, B)
 
 
 _KERNEL = None
-# Query tiles sit in grid.y, which holds at most 65,535 of them (1,048,560
-# queries at R = 2).
+# Query tiles sit in grid.y and lanes in grid.z; a launch takes at most
+# 65,535 (lane, query tile) pairs (1,048,560 queries at R = 2 in one lane).
 MAX_QUERY_TILES = 65535
-# Per (device, stream): the kernel's per-query-tile tickets, one for every
-# tile the grid can hold, zeroed once and never replaced (a captured CUDA
-# graph keeps their address); each launch leaves them zeroed for the next
-# on its stream.
+# Per (device, stream): the kernel's per-(lane, query tile) tickets, one
+# for every pair a launch can hold, zeroed once and never replaced (a
+# captured CUDA graph keeps their address); each launch leaves them zeroed
+# for the next on its stream.
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 
@@ -107,7 +136,7 @@ def _kernel():
     global _KERNEL
     if _KERNEL is None:
         fn = _build.load("knn").knn5_f32
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p] * 5)
         fn.restype = ctypes.c_int
         _KERNEL = fn
@@ -125,6 +154,40 @@ def _tickets(dev: torch.device, stream: int) -> torch.Tensor:
     return t
 
 
+def _checked(name: str, queries, targets, t_mask, k: int,
+             lanes: bool) -> tuple[int, int, int]:
+    """(B, Q, M) of inputs the kernel takes: contiguous float32 CUDA
+    tensors on one device, queries (Q, 3), targets (M, 3) with M ≥ 1,
+    t_mask (M,), each with a leading lane axis B when ``lanes`` (B = 1
+    otherwise). Raises on anything else. Three expressions, as the main
+    path calls this 4 times per sweep."""
+    f32 = torch.float32
+    dev = queries.device
+    lead = queries.shape[:1] if lanes else ()
+    Q = queries.shape[len(lead)] if queries.dim() > len(lead) else -1
+    M = targets.shape[len(lead)] if targets.dim() > len(lead) else -1
+    if k != K_DEFAULT:
+        raise ValueError(f"the CUDA kernel computes k={K_DEFAULT}, got {k}")
+    if queries.dtype != f32 or targets.dtype != f32 or t_mask.dtype != f32:
+        raise TypeError(f"{name} takes float32 tensors, got "
+                        f"{queries.dtype}, {targets.dtype}, {t_mask.dtype}")
+    if (dev.type != "cuda" or targets.device != dev or t_mask.device != dev
+            or queries.shape != lead + (Q, 3)
+            or targets.shape != lead + (M, 3)
+            or t_mask.shape != lead + (M,) or M < 1
+            or not (queries.is_contiguous() and targets.is_contiguous()
+                    and t_mask.is_contiguous())):
+        got = ", ".join(
+            f"{tuple(x.shape)} on {x.device}"
+            + ("" if x.is_contiguous() else " (not contiguous)")
+            for x in (queries, targets, t_mask))
+        b = "B, " if lanes else ""
+        raise ValueError(f"{name} takes contiguous CUDA tensors on one "
+                         f"device: queries ({b}Q, 3), targets ({b}M, 3) "
+                         f"with M >= 1, t_mask ({b}M,); got {got}")
+    return (lead[0] if lanes else 1), Q, M
+
+
 def knn_cuda(
     queries: torch.Tensor,
     targets: torch.Tensor,
@@ -135,47 +198,54 @@ def knn_cuda(
     stream. Inputs: contiguous float32 CUDA tensors on one device, queries
     (Q, 3), targets (M, 3) with M ≥ 1, t_mask (M,). The host work per call
     is kept small, since the main path calls this 4 times per sweep: the
-    checks are three expressions, the plan is cached, the stream handle is
-    read without building a Stream object, and the split scratch (only
-    when the plan splits the targets) is the one allocation beside the
-    outputs."""
+    plan is cached, the stream handle is read without building a Stream
+    object, and the split scratch (only when the plan splits the targets)
+    is the one allocation beside the outputs."""
+    B, Q, M = _checked("knn_cuda", queries, targets, t_mask, k, False)
+    return _launch(queries, targets, t_mask, B, Q, M)
+
+
+def knn_cuda_lanes(
+    queries: torch.Tensor,     # (B, Q, 3)
+    targets: torch.Tensor,     # (B, M, 3)
+    t_mask: torch.Tensor,      # (B, M)
+    k: int = K_DEFAULT,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """B independent k-NN searches of one shape by the CUDA kernel in one
+    launch: lane b's queries against lane b's masked targets. Inputs as
+    :func:`knn_cuda`'s with a leading lane axis; outputs (B, Q, 5)."""
+    global LANE_LAUNCHES
+    B, Q, M = _checked("knn_cuda_lanes", queries, targets, t_mask, k, True)
+    out = _launch(queries, targets, t_mask, B, Q, M)
+    if Q > 0 and B > 0:
+        LANE_LAUNCHES += 1
+    return out
+
+
+def _launch(queries, targets, t_mask, B: int, Q: int, M: int):
+    """One launch over B lanes of checked, contiguous inputs; outputs
+    (B, Q, 5) for lanes, (Q, 5) for one search (B = 1, 2-D inputs)."""
     global KERNEL_LAUNCHES
     dev = queries.device
-    f32 = torch.float32
-    Q, M = queries.shape[0], targets.shape[0]
-    if k != K_DEFAULT:
-        raise ValueError(f"the CUDA kernel computes k={K_DEFAULT}, got {k}")
-    if queries.dtype != f32 or targets.dtype != f32 or t_mask.dtype != f32:
-        raise TypeError("knn_cuda takes float32 tensors, got "
-                        f"{queries.dtype}, {targets.dtype}, {t_mask.dtype}")
-    if (dev.type != "cuda" or targets.device != dev or t_mask.device != dev
-            or queries.shape != (Q, 3) or targets.shape != (M, 3)
-            or t_mask.shape != (M,) or M == 0
-            or not (queries.is_contiguous() and targets.is_contiguous()
-                    and t_mask.is_contiguous())):
-        got = ", ".join(
-            f"{tuple(x.shape)} on {x.device}"
-            + ("" if x.is_contiguous() else " (not contiguous)")
-            for x in (queries, targets, t_mask))
-        raise ValueError("knn_cuda takes contiguous CUDA tensors on one "
-                         "device: queries (Q, 3), targets (M, 3) with M >= 1, "
-                         f"t_mask (M,); got {got}")
-    idx = torch.empty(Q, K_DEFAULT, dtype=torch.int32, device=dev)
-    dist = torch.empty(Q, K_DEFAULT, dtype=f32, device=dev)
-    if Q == 0:
+    lead = (B,) if queries.dim() == 3 else ()
+    idx = torch.empty(lead + (Q, K_DEFAULT), dtype=torch.int32, device=dev)
+    dist = torch.empty(lead + (Q, K_DEFAULT), dtype=torch.float32,
+                       device=dev)
+    if Q == 0 or B == 0:
         return idx, dist
-    p = _plan(Q, M)
-    if p.query_tiles > MAX_QUERY_TILES:
-        raise ValueError(f"knn_cuda takes at most {MAX_QUERY_TILES} query "
-                         f"tiles of {p.query_tile}, got Q={Q}")
+    p = _plan(Q, M, B)
+    if B * p.query_tiles > MAX_QUERY_TILES:
+        raise ValueError(f"the k-NN kernel takes at most {MAX_QUERY_TILES} "
+                         f"(lane, query tile) pairs of {p.query_tile} "
+                         f"queries, got B={B}, Q={Q}")
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     scratch = tickets = None
     if p.n_splits > 1:
-        scratch = torch.empty(Q * p.n_splits * K_DEFAULT, dtype=torch.int64,
-                              device=dev)
+        scratch = torch.empty(B * Q * p.n_splits * K_DEFAULT,
+                              dtype=torch.int64, device=dev)
         tickets = _tickets(dev, stream)
     err = _kernel()(
-        queries.data_ptr(), targets.data_ptr(), t_mask.data_ptr(), Q, M,
+        queries.data_ptr(), targets.data_ptr(), t_mask.data_ptr(), B, Q, M,
         p.rows, p.n_splits, p.split_len, idx.data_ptr(), dist.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         None if tickets is None else tickets.data_ptr(), stream)
@@ -185,15 +255,74 @@ def knn_cuda(
     return idx, dist
 
 
+def knn_lanes(
+    queries: torch.Tensor,
+    targets: torch.Tensor,
+    t_mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Route lanes by device: CPU → :func:`knn_torch_lanes`, CUDA →
+    :func:`knn_cuda_lanes` (looked up at call time, so a caller may wrap
+    either)."""
+    if queries.device.type == "cpu":
+        return knn_torch_lanes(queries, targets, t_mask)
+    return knn_cuda_lanes(queries, targets, t_mask)
+
+
+# The CUDA route as custom ops, so that ``torch.func.vmap`` reaches the
+# kernel's lane axis: knn5's batching rule moves the lane axis to the
+# front (expanding an argument without one to every lane) and calls
+# knn5_lanes, whose own rule folds a further vmap level into its lanes.
+@torch.library.custom_op("vil_sensor_fusion_tpu_torch::knn5",
+                         mutates_args=())
+def _knn5(queries: torch.Tensor, targets: torch.Tensor,
+          t_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return knn_cuda(queries, targets, t_mask)
+
+
+@torch.library.custom_op("vil_sensor_fusion_tpu_torch::knn5_lanes",
+                         mutates_args=())
+def _knn5_lanes(queries: torch.Tensor, targets: torch.Tensor,
+                t_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return knn_lanes(queries, targets, t_mask)
+
+
+def _lanes_first(info, in_dims, args) -> list[torch.Tensor]:
+    return [x.movedim(d, 0) if d is not None
+            else x.expand((info.batch_size,) + x.shape)
+            for x, d in zip(args, in_dims)]
+
+
+@_knn5.register_vmap
+def _knn5_vmap(info, in_dims, queries, targets, t_mask):
+    q, t, m = (x.contiguous() for x in _lanes_first(
+        info, in_dims, (queries, targets, t_mask)))
+    return _knn5_lanes(q, t, m), (0, 0)
+
+
+@_knn5_lanes.register_vmap
+def _knn5_lanes_vmap(info, in_dims, queries, targets, t_mask):
+    q, t, m = _lanes_first(info, in_dims, (queries, targets, t_mask))
+    B, B1 = q.shape[:2]
+    idx, dist = _knn5_lanes(*(x.reshape((B * B1,) + x.shape[2:]).contiguous()
+                              for x in (q, t, m)))
+    return (idx.reshape((B, B1) + idx.shape[1:]),
+            dist.reshape((B, B1) + dist.shape[1:])), (0, 0)
+
+
 def knn(
     queries: torch.Tensor,
     targets: torch.Tensor,
     t_mask: torch.Tensor,
     k: int = K_DEFAULT,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Route by device: CPU → :func:`knn_torch`, CUDA → :func:`knn_cuda`."""
+    """Route by device: CPU → :func:`knn_torch`, CUDA → :func:`knn_cuda`
+    through the custom op ``knn5`` (one launch for all lanes under
+    ``torch.func.vmap``)."""
     if queries.device.type == "cpu":
         return knn_torch(queries, targets, t_mask, k)
     if queries.device.type == "cuda":
-        return knn_cuda(queries, targets, t_mask, k)
+        if k != K_DEFAULT:
+            raise ValueError(f"the CUDA kernel computes k={K_DEFAULT}, "
+                             f"got {k}")
+        return _knn5(queries, targets, t_mask)
     raise ValueError(f"no k-NN path for device {queries.device}")
