@@ -13,6 +13,7 @@ result line:
    whole surf map). Then, per main-path shape, µs per call: the kernel's
    device time (a CUDA graph of 20 launches, replayed), the wrapper's call
    time (back-to-back events) and host time (1,000 calls, no sync), the
+   same two for the main path's entry ``knn`` (through the custom op), the
    bound (8 FLOP per pair at 67 TFLOP/s f32), the plain version and the
    library expression (``torch.mm`` + ``torch.topk``, ties aside). The
    same for the kernel's lane entry (``knn_cuda_lanes``: 8 searches of one
@@ -20,7 +21,8 @@ result line:
    bench shapes with a different mask density per lane, a lane with one
    valid target, ties across lanes and splits, every lane also equal bit
    for bit to the single-search kernel on it; times per launch of 8 lanes
-   with ``torch.bmm`` + ``torch.topk`` as the library.
+   (the entry timed there is ``torch.func.vmap(knn)``) with ``torch.bmm``
+   + ``torch.topk`` as the library.
 4. The full path at the bench's rig: the 1.5 s ``town`` drive's 30 camera
    frames (800×600, fov 100°) and camera-frame sweep points rendered on the
    card (untimed), then the image tracker (pyramids, detection with LiDAR
@@ -109,8 +111,10 @@ result line:
    single-sequence functions, and the k-NN microbench. Prints events/s,
    pass and single-stream walls, stage ms of both, ATEs per lane. Checks:
    the one stdout JSON line; fused poses finite in every lane; VIO / LiDAR
-   ATE < 0.5 m and fused ATE < 1.0 m per lane; k-NN launches per pass = 4
-   per sweep (one launch for all lanes, not one per lane); the lane kernel
+   ATE < 0.5 m and fused ATE < 1.0 m per lane; k-NN launches, counted over
+   the warm pass, over every lane pass and over every single-stream pass,
+   = 4 per sweep per pass (one launch for all lanes, not one per lane);
+   the lane kernel
    against ``knn_torch_lanes`` on every lane-batched k-NN call of the cold
    pass; lane 0 against its single-stream run within ``CROSS_TOL``.
 
@@ -584,19 +588,24 @@ def time_knn_lane_shapes(dev: torch.device, B: int = KNN_LANES) -> dict:
         t = torch.stack([_map_cloud(M, g) for _ in range(B)]).to(dev)
         m = (torch.rand(B, M, generator=g) > 0.05).float().to(dev)
         kern = lambda: K.knn_cuda_lanes(q, t, m)
-        ev = time_turns({"call": kern,
+        entry = lambda: torch.func.vmap(K.knn)(q, t, m)
+        ev = time_turns({"call": kern, "entry": entry,
                          "plain": lambda: K.knn_torch_lanes(q, t, m),
                          "library": lambda: knn_library_lanes(q, t, m)})
         bound, bound_by = knn_bound_ms(Q, M, B)
         row = {"lanes": B, "device_us": graph_ms(kern) * 1e3,
                "call_us": ev["call"] * 1e3, "host_us": host_ms(kern) * 1e3,
+               "entry_call_us": ev["entry"] * 1e3,
+               "entry_host_us": host_ms(entry) * 1e3,
                "bound_us": bound * 1e3, "bound_by": bound_by,
                "plain_us": ev["plain"] * 1e3,
                "library_us": ev["library"] * 1e3}
         row["roofline_share"] = row["bound_us"] / row["device_us"]
         out[f"{B}x{Q}x{M}"] = row
         print(f"  {B}x{Q:5d}x{M:<5d} device {row['device_us']:8.2f}  call "
-              f"{row['call_us']:8.2f}  host {row['host_us']:7.2f}  bound "
+              f"{row['call_us']:8.2f}  host {row['host_us']:7.2f}  vmap(knn) "
+              f"call {row['entry_call_us']:8.2f} host "
+              f"{row['entry_host_us']:7.2f}  bound "
               f"{row['bound_us']:6.3f} ({100 * row['roofline_share']:.1f}%)  "
               f"library {row['library_us']:8.2f}  plain "
               f"{row['plain_us']:8.2f}  us", flush=True)
@@ -613,18 +622,24 @@ def time_knn_shapes(dev: torch.device) -> dict:
         q, t = _map_cloud(Q, g).to(dev), _map_cloud(M, g).to(dev)
         m = (torch.rand(M, generator=g) > 0.05).float().to(dev)
         kern = lambda: K.knn_cuda(q, t, m)
-        ev = time_turns({"call": kern, "plain": lambda: K.knn_torch(q, t, m),
+        entry = lambda: K.knn(q, t, m)
+        ev = time_turns({"call": kern, "entry": entry,
+                         "plain": lambda: K.knn_torch(q, t, m),
                          "library": lambda: knn_library(q, t, m)})
         bound, bound_by = knn_bound_ms(Q, M)
         row = {"device_us": graph_ms(kern) * 1e3,
                "call_us": ev["call"] * 1e3, "host_us": host_ms(kern) * 1e3,
+               "entry_call_us": ev["entry"] * 1e3,
+               "entry_host_us": host_ms(entry) * 1e3,
                "bound_us": bound * 1e3, "bound_by": bound_by,
                "plain_us": ev["plain"] * 1e3,
                "library_us": ev["library"] * 1e3}
         row["roofline_share"] = row["bound_us"] / row["device_us"]
         out[f"{Q}x{M}"] = row
         print(f"  {Q:5d}x{M:<5d} device {row['device_us']:8.2f}  call "
-              f"{row['call_us']:8.2f}  host {row['host_us']:7.2f}  bound "
+              f"{row['call_us']:8.2f}  host {row['host_us']:7.2f}  knn call "
+              f"{row['entry_call_us']:8.2f} host {row['entry_host_us']:7.2f}"
+              f"  bound "
               f"{row['bound_us']:6.3f} ({100 * row['roofline_share']:.1f}%)  "
               f"library {row['library_us']:8.2f}  plain "
               f"{row['plain_us']:8.2f}  us", flush=True)
@@ -2026,7 +2041,6 @@ def drive_bench_lanes(dev) -> dict:
     sync = _sync_of(dev)
     sync()
     K.KERNEL_LAUNCHES = 0
-    K.LANE_LAUNCHES = 0
     t0 = time.perf_counter()
     with wrapped((K, "knn_cuda_lanes", lambda fn: record),
                  (BN, "lanes_pass", count_passes),
@@ -2034,7 +2048,6 @@ def drive_bench_lanes(dev) -> dict:
         cli.main(argv)
     sync()
     wall = time.perf_counter() - t0
-    lane_launches = K.LANE_LAUNCHES
     res = seen["res"]
     lines = out.getvalue().strip().splitlines()
     line = json.loads(lines[-1])
@@ -2056,10 +2069,10 @@ def drive_bench_lanes(dev) -> dict:
             "single_stream_events_per_s": diag["single_stream_events_per_s"],
             "stages_ms_batched": diag["stages_ms_batched"],
             "stages_ms_single": diag["stages_ms_single"],
-            "knn_launches_per_pass": diag["knn_launches_per_pass"],
-            "knn_launches_per_single_pass":
-                diag["knn_launches_per_single_pass"],
-            "lane_launches": lane_launches,
+            **{k: diag[k] for k in (
+                "knn_launches_per_pass", "knn_launches_lanes",
+                "knn_launches_per_single_pass",
+                "knn_launches_single_stream")},
             "knn_microbench": diag["knn_kernel"],
             "live_share": [float(o.frames.obs_valid[b, 2:].mean())
                            for b in range(B)],
@@ -2087,9 +2100,12 @@ def drive_bench_lanes(dev) -> dict:
           f"{diag['knn_launches_per_pass']} k-NN launches per pass, want 4 "
           f"per sweep for all lanes ({4 * T_l}), not per lane "
           f"({4 * T_l * B})")
-    check(lane_launches == (1 + BENCH_REPS) * 4 * T_l,
-          f"{lane_launches} lane-kernel launches, want "
-          f"{(1 + BENCH_REPS) * 4 * T_l}")
+    for key, passes in (("knn_launches_lanes", 1 + BENCH_REPS),
+                        ("knn_launches_per_single_pass", 1),
+                        ("knn_launches_single_stream", 1 + BENCH_REPS)):
+        check(diag[key] == 4 * T_l * passes,
+              f"{key} {diag[key]}, want 4 per sweep over {passes} "
+              f"pass(es): {4 * T_l * passes}")
     check(len(calls) == 4 * T_l, f"{len(calls)} lane k-NN calls recorded")
     for k, tol in CROSS_TOL.items():
         v = nums["lane0_vs_single"][k]
@@ -2226,13 +2242,13 @@ def main() -> int:
     launches["sharded_lidar_step"] = par["numbers"]["model"]["launches"]
     launches["bag_replay_photometric"] = photo["numbers"]["launches"]
     bn = bench["numbers"]
-    launches["bench_single_stream"] = ((1 + BENCH_REPS)
-                                       * bn["knn_launches_per_single_pass"])
+    launches["bench_single_stream"] = bn["knn_launches_single_stream"]
     print(f"card: {card}")
     print(kernels_line(card, launches, max_err, shapes,
                        exp["knn_calls_per_sweep"],
                        bag["numbers"]["knn_calls_per_sweep"],
-                       {"bench_lanes": bn["lane_launches"]}, lane_max_err,
+                       {"bench_lanes": bn["knn_launches_lanes"]},
+                       lane_max_err,
                        lane_shapes))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

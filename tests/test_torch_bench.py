@@ -86,7 +86,9 @@ def test_cli_bench_prints_the_json_line(small_bench):
     for key in ("stages_ms_batched", "stages_ms_single"):
         assert set(diag[key]) == set(stages)
         assert all(np.isfinite(v) and v > 0 for v in diag[key].values())
-    assert diag["knn_launches_per_pass"] == 0        # no card, no kernel
+    for key in ("knn_launches_per_pass", "knn_launches_lanes",
+                "knn_launches_per_single_pass", "knn_launches_single_stream"):
+        assert diag[key] == 0                        # no card, no kernel
     assert set(diag["knn_kernel"]) == {"plain", "library"}
     for key in ("wall_s_per_batched_pass", "events_per_s",
                 "single_stream_wall_s", "realtime_factor_single_stream"):
@@ -147,34 +149,34 @@ def test_vmap_of_knn_on_cpu_equals_knn_torch_per_lane():
 @pytest.mark.parametrize("case", ["all_batched", "targets_shared",
                                   "nested"])
 def test_custom_op_batching_rules_make_one_lane_call(case, monkeypatch):
-    """The CUDA route's batching rules, driven on the CPU: each
-    ``vmap`` call of the custom op ``knn5`` reaches ``knn_lanes`` once
-    with every argument given a leading lane axis (an unbatched target set
+    """The CUDA route's batching rule, driven on the CPU with the lane
+    entry standing in for its plain twin: each ``vmap`` call of one search
+    through the custom op ``knn5`` reaches ``knn_cuda_lanes`` once with
+    every argument given a leading lane axis (an unbatched target set
     expanded to every lane; a nested vmap folded into one lane axis), and
     the results equal ``knn_torch`` per lane."""
     calls = []
-    lanes = K.knn_lanes
 
     def record(q, t, m):
         calls.append((q.shape, t.shape, m.shape))
-        return lanes(q, t, m)
-    monkeypatch.setattr(K, "knn_lanes", record)
+        return K.knn_torch_lanes(q, t, m)
+    monkeypatch.setattr(K, "knn_cuda_lanes", record)
     q, t, m = _knn_inputs(3, 21, 200, seed=1)
     with warnings.catch_warnings():
         warnings.filterwarnings("error", message=FALLBACK)
         if case == "all_batched":
-            idx, d2 = torch.func.vmap(K._knn5)(q, t, m)
+            idx, d2 = torch.func.vmap(K._knn_op)(q, t, m)
             want = [K.knn_torch(q[b], t[b], m[b]) for b in range(3)]
             shapes = [((3, 21, 3), (3, 200, 3), (3, 200))]
         elif case == "targets_shared":
-            idx, d2 = torch.func.vmap(K._knn5, in_dims=(0, None, None))(
+            idx, d2 = torch.func.vmap(K._knn_op, in_dims=(0, None, None))(
                 q, t[0], m[0])
             want = [K.knn_torch(q[b], t[0], m[0]) for b in range(3)]
             shapes = [((3, 21, 3), (3, 200, 3), (3, 200))]
         else:
             q2 = torch.stack([q, q.flip(1)], 1)          # (3, 2, Q, 3)
             idx, d2 = torch.func.vmap(torch.func.vmap(
-                K._knn5, in_dims=(0, None, None)))(q2, t, m)
+                K._knn_op, in_dims=(0, None, None)))(q2, t, m)
             idx, d2 = idx.reshape(6, 21, 5), d2.reshape(6, 21, 5)
             want = [K.knn_torch(q2[b, a], t[b], m[b])
                     for b in range(3) for a in range(2)]

@@ -156,11 +156,10 @@ def test_knn_cuda_lanes_equals_each_lanes_single_search(dev, shape):
     kernel's bits (a result does not depend on the grid), and
     ``knn_torch_lanes`` within the tolerance above."""
     q, t, m = _lanes(*shape, dev)
-    before, lanes_before = K.KERNEL_LAUNCHES, K.LANE_LAUNCHES
+    before = K.KERNEL_LAUNCHES
     i_k, d_k = K.knn_cuda_lanes(q, t, m)
     torch.cuda.synchronize()
-    assert (K.KERNEL_LAUNCHES, K.LANE_LAUNCHES) == (before + 1,
-                                                    lanes_before + 1)
+    assert K.KERNEL_LAUNCHES == before + 1
     i_p, d_p = K.knn_torch_lanes(q, t, m)
     tol = 4 * torch.finfo(torch.float32).eps * float(
         (q * q).sum(-1).max() + (t * t).sum(-1).max())
@@ -194,10 +193,10 @@ def test_vmap_of_knn_is_one_lane_launch(dev):
     custom op's batching rule: one lane launch for all lanes, an unbatched
     target set expanded to every lane."""
     q, t, m = _lanes(384, 3984, dev, B=4)
-    before = K.LANE_LAUNCHES
+    before = K.KERNEL_LAUNCHES
     idx, d2 = torch.func.vmap(K.knn)(q, t, m)
     i_l, d_l = K.knn_cuda_lanes(q, t, m)
-    assert K.LANE_LAUNCHES == before + 2
+    assert K.KERNEL_LAUNCHES == before + 2
     assert torch.equal(idx, i_l) and torch.equal(d2, d_l)
     idx, _ = torch.func.vmap(K.knn, in_dims=(0, None, None))(q, t[0], m[0])
     for b in range(4):
@@ -238,10 +237,9 @@ def test_odometry_run_lanes_on_the_card(dev):
                       lie.pose_between(prev, poses)))
     st, sw, g = (_tree.tree_map(lambda *x: torch.stack(x), *f)
                  for f in zip(*lanes))
-    before, lanes_before = K.KERNEL_LAUNCHES, K.LANE_LAUNCHES
+    before = K.KERNEL_LAUNCHES
     _, out = L.odometry.run_lanes(cfg, st, sw, g)
     torch.cuda.synchronize()
-    assert K.LANE_LAUNCHES - lanes_before == 4 * T
     assert K.KERNEL_LAUNCHES - before == 4 * T
     for b, (s1, w1, g1) in enumerate(lanes):
         _, o1 = L.odometry.run(cfg, s1, w1, g1)

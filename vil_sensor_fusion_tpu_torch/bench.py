@@ -371,7 +371,10 @@ def run(lanes: int = BATCH, duration: float = DURATION, reps: int = REPS,
         device="cuda", log=None) -> BenchResult:
     """Build the lanes at :data:`RIG`, run the warm pass, ``reps`` timed
     passes, lane 0 alone (warm, then ``reps`` timed runs) and the k-NN
-    microbench at :data:`KNN_SHAPE`. ``log(msg)`` reports progress."""
+    microbench at :data:`KNN_SHAPE`. ``log(msg)`` reports progress. The
+    k-NN kernel's launches are counted over the warm lane pass
+    (``knn_launches_per_pass``), every lane pass (``knn_launches_lanes``),
+    the warm single pass and every single pass."""
     log = log or (lambda msg: None)
     if lanes < 1 or reps < 1 or duration < 0.1:
         raise ValueError(f"bench needs lanes >= 1, reps >= 1 and a duration "
@@ -406,6 +409,7 @@ def run(lanes: int = BATCH, duration: float = DURATION, reps: int = REPS,
         out = lanes_pass(cfg, x, s, timer)
     _sync(dev)
     wall_b = (time.perf_counter() - t0) / reps
+    launches_lanes = K.KERNEL_LAUNCHES - launches0
     events_per_s = lanes * n_events / wall_b
 
     log("single stream: lane 0 alone, warm, then timed")
@@ -419,6 +423,7 @@ def run(lanes: int = BATCH, duration: float = DURATION, reps: int = REPS,
         out_1 = single_pass(cfg, x, s, timer_1)
     _sync(dev)
     wall_1 = (time.perf_counter() - t0) / reps
+    launches_single = K.KERNEL_LAUNCHES - launches0
 
     log(f"k-NN microbench at {knn_shape[0]}x{knn_shape[1]}")
     ms = lambda t: {k: v["mean_s"] * 1e3 for k, v in t.summary().items()}
@@ -443,7 +448,9 @@ def run(lanes: int = BATCH, duration: float = DURATION, reps: int = REPS,
         "stages_ms_batched": ms(timer),
         "stages_ms_single": ms(timer_1),
         "knn_launches_per_pass": launches,
+        "knn_launches_lanes": launches_lanes,
         "knn_launches_per_single_pass": launches_1,
+        "knn_launches_single_stream": launches_single,
         "knn_kernel": knn_microbench(dev, knn_shape),
     }
     target = REALTIME_EVENTS_PER_S * TARGET_MULTIPLIER

@@ -8,22 +8,21 @@ distances and masked targets at +inf:
 - :func:`knn_torch` — plain PyTorch: the distance rows
   ‖q‖² − 2q·t + ‖t‖² from one ``torch.matmul``, then k passes of
   lowest-index argmin and mask-out (the selection of the TPU kernel).
-- :func:`knn_cuda` — the hand-written Hopper kernel ``csrc/knn.cu``,
-  replacing the TPU kernel ``_knn_kernel`` (k = 5, float32 only). One
-  launch per call over a grid of (target splits × query tiles) that
-  :func:`_plan` picks on the host.
-
-Lanes: :func:`knn_cuda_lanes` runs B independent searches of one shape,
-(B, Q, 3) queries against (B, M, 3) targets, in one launch (the kernel's
-grid gains a lane axis, as ``pallas_call`` gains a batch grid axis under
-``jax.vmap``); :func:`knn_torch_lanes` is its plain twin, ``knn_torch``
-per lane.
+- :func:`knn_cuda_lanes` — the hand-written Hopper kernel ``csrc/knn.cu``,
+  replacing the TPU kernel ``_knn_kernel`` (k = 5, float32 only): B
+  independent searches of one shape, (B, Q, 3) queries against (B, M, 3)
+  targets, in one launch over a grid of (target splits × query tiles ×
+  lanes) that :func:`_plan` picks on the host (the lane axis is what
+  ``pallas_call`` gains under ``jax.vmap``). :func:`knn_cuda` is its
+  one-lane view, :func:`knn_torch_lanes` its plain twin (``knn_torch`` per
+  lane).
 
 :func:`knn` routes by device: a CPU tensor goes to :func:`knn_torch` (which
 ``torch.func.vmap`` batches as it stands), a CUDA tensor to the custom op
-``vil_sensor_fusion_tpu_torch::knn5``, which runs :func:`knn_cuda`; under
-``torch.func.vmap`` its batching rule runs :func:`knn_cuda_lanes` once for
-all lanes. Neither falls back to the plain version: they launch or raise.
+``vil_sensor_fusion_tpu_torch::knn5`` on :func:`knn_cuda_lanes`, whose
+batching rule folds ``torch.func.vmap``'s lanes into the kernel's, one
+launch for all lanes. Neither falls back to the plain version: they
+launch or raise.
 """
 
 from __future__ import annotations
@@ -38,11 +37,9 @@ from .. import _build
 
 K_DEFAULT = 5
 
-# Launches of the CUDA kernel by knn_cuda and knn_cuda_lanes (one per
-# call, whatever its lane count), for callers that check which path a run
-# went through; LANE_LAUNCHES counts those of knn_cuda_lanes alone.
+# Launches of the CUDA kernel (one per call, whatever its lane count), for
+# callers that check which path a run went through.
 KERNEL_LAUNCHES = 0
-LANE_LAUNCHES = 0
 
 
 def knn_torch(
@@ -154,55 +151,34 @@ def _tickets(dev: torch.device, stream: int) -> torch.Tensor:
     return t
 
 
-def _checked(name: str, queries, targets, t_mask, k: int,
-             lanes: bool) -> tuple[int, int, int]:
+def _checked(queries, targets, t_mask, k: int) -> tuple[int, int, int]:
     """(B, Q, M) of inputs the kernel takes: contiguous float32 CUDA
-    tensors on one device, queries (Q, 3), targets (M, 3) with M ≥ 1,
-    t_mask (M,), each with a leading lane axis B when ``lanes`` (B = 1
-    otherwise). Raises on anything else. Three expressions, as the main
-    path calls this 4 times per sweep."""
+    tensors on one device, queries (B, Q, 3), targets (B, M, 3) with
+    M ≥ 1, t_mask (B, M). Raises on anything else. Three expressions, as
+    the main path calls this 4 times per sweep."""
     f32 = torch.float32
     dev = queries.device
-    lead = queries.shape[:1] if lanes else ()
-    Q = queries.shape[len(lead)] if queries.dim() > len(lead) else -1
-    M = targets.shape[len(lead)] if targets.dim() > len(lead) else -1
+    B, Q, M = (queries.shape[0] if queries.dim() else -1,
+               queries.shape[1] if queries.dim() > 1 else -1,
+               targets.shape[1] if targets.dim() > 1 else -1)
     if k != K_DEFAULT:
         raise ValueError(f"the CUDA kernel computes k={K_DEFAULT}, got {k}")
     if queries.dtype != f32 or targets.dtype != f32 or t_mask.dtype != f32:
-        raise TypeError(f"{name} takes float32 tensors, got "
+        raise TypeError(f"the k-NN kernel takes float32 tensors, got "
                         f"{queries.dtype}, {targets.dtype}, {t_mask.dtype}")
     if (dev.type != "cuda" or targets.device != dev or t_mask.device != dev
-            or queries.shape != lead + (Q, 3)
-            or targets.shape != lead + (M, 3)
-            or t_mask.shape != lead + (M,) or M < 1
+            or queries.shape != (B, Q, 3) or targets.shape != (B, M, 3)
+            or t_mask.shape != (B, M) or M < 1
             or not (queries.is_contiguous() and targets.is_contiguous()
                     and t_mask.is_contiguous())):
         got = ", ".join(
             f"{tuple(x.shape)} on {x.device}"
             + ("" if x.is_contiguous() else " (not contiguous)")
             for x in (queries, targets, t_mask))
-        b = "B, " if lanes else ""
-        raise ValueError(f"{name} takes contiguous CUDA tensors on one "
-                         f"device: queries ({b}Q, 3), targets ({b}M, 3) "
-                         f"with M >= 1, t_mask ({b}M,); got {got}")
-    return (lead[0] if lanes else 1), Q, M
-
-
-def knn_cuda(
-    queries: torch.Tensor,
-    targets: torch.Tensor,
-    t_mask: torch.Tensor,
-    k: int = K_DEFAULT,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """k-NN by the CUDA kernel: one launch on the inputs' device's current
-    stream. Inputs: contiguous float32 CUDA tensors on one device, queries
-    (Q, 3), targets (M, 3) with M ≥ 1, t_mask (M,). The host work per call
-    is kept small, since the main path calls this 4 times per sweep: the
-    plan is cached, the stream handle is read without building a Stream
-    object, and the split scratch (only when the plan splits the targets)
-    is the one allocation beside the outputs."""
-    B, Q, M = _checked("knn_cuda", queries, targets, t_mask, k, False)
-    return _launch(queries, targets, t_mask, B, Q, M)
+        raise ValueError("knn_cuda_lanes takes contiguous CUDA tensors on "
+                         "one device: queries (B, Q, 3), targets (B, M, 3) "
+                         f"with M >= 1, t_mask (B, M); got {got}")
+    return B, Q, M
 
 
 def knn_cuda_lanes(
@@ -212,25 +188,18 @@ def knn_cuda_lanes(
     k: int = K_DEFAULT,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """B independent k-NN searches of one shape by the CUDA kernel in one
-    launch: lane b's queries against lane b's masked targets. Inputs as
-    :func:`knn_cuda`'s with a leading lane axis; outputs (B, Q, 5)."""
-    global LANE_LAUNCHES
-    B, Q, M = _checked("knn_cuda_lanes", queries, targets, t_mask, k, True)
-    out = _launch(queries, targets, t_mask, B, Q, M)
-    if Q > 0 and B > 0:
-        LANE_LAUNCHES += 1
-    return out
-
-
-def _launch(queries, targets, t_mask, B: int, Q: int, M: int):
-    """One launch over B lanes of checked, contiguous inputs; outputs
-    (B, Q, 5) for lanes, (Q, 5) for one search (B = 1, 2-D inputs)."""
+    launch on the inputs' device's current stream: lane b's queries
+    against lane b's masked targets; outputs (B, Q, 5). Inputs: contiguous
+    float32 CUDA tensors on one device. The host work per call is kept
+    small, since the main path calls this 4 times per sweep: the plan is
+    cached, the stream handle is read without building a Stream object,
+    and the split scratch (only when the plan splits the targets) is the
+    one allocation beside the outputs."""
     global KERNEL_LAUNCHES
+    B, Q, M = _checked(queries, targets, t_mask, k)
     dev = queries.device
-    lead = (B,) if queries.dim() == 3 else ()
-    idx = torch.empty(lead + (Q, K_DEFAULT), dtype=torch.int32, device=dev)
-    dist = torch.empty(lead + (Q, K_DEFAULT), dtype=torch.float32,
-                       device=dev)
+    idx = torch.empty(B, Q, K_DEFAULT, dtype=torch.int32, device=dev)
+    dist = torch.empty(B, Q, K_DEFAULT, dtype=torch.float32, device=dev)
     if Q == 0 or B == 0:
         return idx, dist
     p = _plan(Q, M, B)
@@ -255,58 +224,47 @@ def _launch(queries, targets, t_mask, B: int, Q: int, M: int):
     return idx, dist
 
 
-def knn_lanes(
-    queries: torch.Tensor,
-    targets: torch.Tensor,
-    t_mask: torch.Tensor,
+def knn_cuda(
+    queries: torch.Tensor,     # (Q, 3)
+    targets: torch.Tensor,     # (M, 3)
+    t_mask: torch.Tensor,      # (M,)
+    k: int = K_DEFAULT,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Route lanes by device: CPU → :func:`knn_torch_lanes`, CUDA →
-    :func:`knn_cuda_lanes` (looked up at call time, so a caller may wrap
-    either)."""
-    if queries.device.type == "cpu":
-        return knn_torch_lanes(queries, targets, t_mask)
-    return knn_cuda_lanes(queries, targets, t_mask)
+    """One search by the CUDA kernel: :func:`knn_cuda_lanes` of one
+    lane."""
+    idx, dist = knn_cuda_lanes(queries[None], targets[None], t_mask[None],
+                               k)
+    return idx[0], dist[0]
 
 
-# The CUDA route as custom ops, so that ``torch.func.vmap`` reaches the
-# kernel's lane axis: knn5's batching rule moves the lane axis to the
-# front (expanding an argument without one to every lane) and calls
-# knn5_lanes, whose own rule folds a further vmap level into its lanes.
+# The CUDA route as a custom op on the lane entry, so that
+# ``torch.func.vmap`` reaches the kernel's lane axis: its batching rule
+# moves the vmapped axis to the front (expanding an argument without one
+# to every lane), folds it into the lanes and calls the op again, so a
+# nested vmap folds level by level into one launch.
 @torch.library.custom_op("vil_sensor_fusion_tpu_torch::knn5",
                          mutates_args=())
 def _knn5(queries: torch.Tensor, targets: torch.Tensor,
           t_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    return knn_cuda(queries, targets, t_mask)
-
-
-@torch.library.custom_op("vil_sensor_fusion_tpu_torch::knn5_lanes",
-                         mutates_args=())
-def _knn5_lanes(queries: torch.Tensor, targets: torch.Tensor,
-                t_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    return knn_lanes(queries, targets, t_mask)
-
-
-def _lanes_first(info, in_dims, args) -> list[torch.Tensor]:
-    return [x.movedim(d, 0) if d is not None
-            else x.expand((info.batch_size,) + x.shape)
-            for x, d in zip(args, in_dims)]
+    return knn_cuda_lanes(queries, targets, t_mask)
 
 
 @_knn5.register_vmap
 def _knn5_vmap(info, in_dims, queries, targets, t_mask):
-    q, t, m = (x.contiguous() for x in _lanes_first(
-        info, in_dims, (queries, targets, t_mask)))
-    return _knn5_lanes(q, t, m), (0, 0)
+    q, t, m = (x.movedim(d, 0) if d is not None
+               else x.expand((info.batch_size,) + x.shape)
+               for x, d in zip((queries, targets, t_mask), in_dims))
+    L, B = q.shape[:2]
+    idx, dist = _knn5(*(x.reshape((L * B,) + x.shape[2:]).contiguous()
+                        for x in (q, t, m)))
+    return (idx.reshape((L, B) + idx.shape[1:]),
+            dist.reshape((L, B) + dist.shape[1:])), (0, 0)
 
 
-@_knn5_lanes.register_vmap
-def _knn5_lanes_vmap(info, in_dims, queries, targets, t_mask):
-    q, t, m = _lanes_first(info, in_dims, (queries, targets, t_mask))
-    B, B1 = q.shape[:2]
-    idx, dist = _knn5_lanes(*(x.reshape((B * B1,) + x.shape[2:]).contiguous()
-                              for x in (q, t, m)))
-    return (idx.reshape((B, B1) + idx.shape[1:]),
-            dist.reshape((B, B1) + dist.shape[1:])), (0, 0)
+def _knn_op(queries, targets, t_mask):
+    """One search through the custom op (a lane of one)."""
+    idx, dist = _knn5(queries[None], targets[None], t_mask[None])
+    return idx[0], dist[0]
 
 
 def knn(
@@ -315,14 +273,14 @@ def knn(
     t_mask: torch.Tensor,
     k: int = K_DEFAULT,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Route by device: CPU → :func:`knn_torch`, CUDA → :func:`knn_cuda`
-    through the custom op ``knn5`` (one launch for all lanes under
-    ``torch.func.vmap``)."""
+    """Route by device: CPU → :func:`knn_torch`, CUDA → one lane of
+    :func:`knn_cuda_lanes` through the custom op ``knn5`` (one launch for
+    all lanes under ``torch.func.vmap``)."""
     if queries.device.type == "cpu":
         return knn_torch(queries, targets, t_mask, k)
     if queries.device.type == "cuda":
         if k != K_DEFAULT:
             raise ValueError(f"the CUDA kernel computes k={K_DEFAULT}, "
                              f"got {k}")
-        return _knn5(queries, targets, t_mask)
+        return _knn_op(queries, targets, t_mask)
     raise ValueError(f"no k-NN path for device {queries.device}")
