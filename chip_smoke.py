@@ -23,7 +23,7 @@ result line:
    for bit to the single-search kernel on it; times per launch of 8 lanes
    (the entry timed there is ``torch.func.vmap(knn)``) with ``torch.bmm``
    + ``torch.topk`` as the library.
-4. The full path at the bench's rig: the 1.5 s ``town`` drive's 30 camera
+4. The full path at the bench's rig: the 1.0 s ``town`` drive's 20 camera
    frames (800×600, fov 100°) and camera-frame sweep points rendered on the
    card (untimed), then the image tracker (pyramids, detection with LiDAR
    depths, KLT tracking) and ``fusion.vil.run_vil`` (VIO → LiDAR odometry
@@ -96,14 +96,16 @@ result line:
    the kernel against ``knn_torch`` on every call. Then the photometric VIO
    stage alone on the CPU over the first 5 frames from the card's inputs,
    within ``PHOTO_CROSS_TOL`` (the first frame whose χ² verdicts differ is
-   printed); then ``graph.batch.solve_batch`` in float64 on the card
-   against the CPU on ``tests/test_batch_oracle.py``'s circle problem at
-   4 s (poses within 1e-9 m, ``n_between`` equal, cost within 1e-9
-   relative), and the fixed-lag ``fusion.run`` on the card over its first
-   1.5 s against the oracle of that timeline (the test's bounds).
+   printed); then the oracle report's problem (``oracle_report.build_problem``,
+   ``tests/test_batch_oracle.py``'s circle, noise 0) at 4 s in float64 on
+   the card against the CPU (``graph.batch.solve_batch``: poses within
+   1e-9 m, ``n_between`` equal, cost within 1e-9 relative), and
+   ``oracle_report.run_window`` (the fixed-lag ``fusion.run``, window 6) on
+   the card over 1.5 s against the oracle of that timeline (the test's
+   bounds).
 11. Bench lanes: ``cli.main(["bench", "--lanes", "8", "--duration",
-   "0.6", "--reps", "1"])`` on the card: 8 town seeds at the bench's rig
-   (800×600 camera, full sweeps; 6 sweeps and 12 frames, 18 events per
+   "0.4", "--reps", "1"])`` on the card: 8 town seeds at the bench's rig
+   (800×600 camera, full sweeps; 4 sweeps and 8 frames, 12 events per
    lane) through every stage batched over the lanes (``bench.py`` of the
    package: pyramids, candidates, ``track_frames_lanes``,
    ``pipeline.run_lanes``, ``odometry.run_lanes``, ``logdet_gate``,
@@ -117,11 +119,26 @@ result line:
    the lane kernel
    against ``knn_torch_lanes`` on every lane-batched k-NN call of the cold
    pass; lane 0 against its single-stream run within ``CROSS_TOL``.
+12. The long-drive soak: ``soak.run_soak`` (the port's
+   ``scripts/soak.py``) on the card at its full width (800×600 camera, 24
+   landmarks, full 16×1800 sweeps, the soak's rig: ICP 6 / 8 iterations
+   with correspondences every 2nd, maps 32,768 / 65,536) over 1 s in two
+   0.5 s chunks with the checkpoint test: chunk 1, chunk 2 from the
+   carried state, chunk 2 again from the checkpoint restored into a fresh
+   template (45 events). Prints the summary and, per chunk, the walls of
+   pyramids, detection and the estimator and the real-time factor.
+   Checks: every fused pose finite, drift under 5% of the distance,
+   healthy share > 0.95, gate keep share > 0.5 (the first sweeps of a
+   drive are gated more often than the 20 s test's 0.9 allows), the maps
+   populated and within capacity, resume Δ exactly 0; k-NN launches equal
+   to a CPU count per sweep of the first chunk's sweeps; the kernel
+   against ``knn_torch`` on every k-NN call of the first chunk.
 
-The last two lines are a JSON object describing the kernels (one sweep's
+After phase 12 a ``[phase seconds]`` line gives each phase's wall. The
+last two lines are a JSON object describing the kernels (one sweep's
 sums in ms: ``ms`` the wrapper's call time, ``device_ms`` the kernel's
 own; per-shape µs under ``per_shape_us``; launches per driven path; the
-kernel's ms per experiment sweep and per bag-replay sweep; the card; and
+kernel's ms per experiment, bag-replay and soak sweep; the card; and
 the lane entry ``knn5_f32_lanes`` with one 8-lane bench sweep's sums) and
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX. The stages
 are timed with the port's ``utils.tracing.StageTimer``.
@@ -135,7 +152,6 @@ import io
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -170,6 +186,7 @@ from vil_sensor_fusion_tpu_torch.ops import knn as K
 from vil_sensor_fusion_tpu_torch.parallel import mesh as PM
 from vil_sensor_fusion_tpu_torch.parallel import ops as POPS
 from vil_sensor_fusion_tpu_torch.parallel import windows as PW
+from vil_sensor_fusion_tpu_torch.soak import card_line
 
 # The four k-NN launches of one sweep (Q queries × M targets): line and
 # plane fits of the scan-to-scan stage, then of the scan-to-map stage.
@@ -180,13 +197,15 @@ EXPERIMENT_SHAPES = ((1920, 4096), (3984, 8192))
 # Depths, cut so the script stays well inside its 600 s: the town drive
 # from 4 s to 2 s and, once phase 8 came (whose first whole run took 586 s
 # on an H100 host where the engine ran 1.5 times slower than before), to
-# 1.5 s; the synthetic-track drive from 1 s to 0.5 s; the experiment cells
-# from 1.5 s to 1.2 s (a tunnel cell under 6 s labels at most one sweep
-# either way; the corridor and the arena give the pooled labels both
-# classes).
+# 1.5 s, and to 1.0 s when phase 12 came (phase 6 still reruns its 10
+# sweeps, phase 9 its first 18 events); the synthetic-track drive from 1 s
+# to 0.5 s; the experiment cells from 1.5 s to 1.2 s (a tunnel cell under
+# 6 s labels at most one sweep either way; the corridor and the arena give
+# the pooled labels both classes); phase 11's bench lanes from 0.6 s to
+# 0.4 s when phase 12 came.
 EXPERIMENT_DURATION = 1.2   # s per experiment cell: 12 sweeps, 24 frames
 CROSS_EXP_SWEEPS = 5        # corridor sweeps (and 10 frames) rerun on the CPU
-DURATION = 1.5          # s of the town drive: 15 sweeps, 30 VIO frames
+DURATION = 1.0          # s of the town drive: 10 sweeps, 20 VIO frames
 SHORT_DURATION = 0.5    # s of the synthetic-track drive: 5 sweeps
 CROSS_SWEEPS = 10       # sweeps (and their 20 frames) rerun on the CPU
 CAM_W, CAM_H = 800, 600  # the bench's camera (bench.py)
@@ -201,14 +220,6 @@ class Failed(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise Failed(msg)
-
-
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 # --------------------------------------------------------------------------
@@ -648,14 +659,15 @@ def time_knn_shapes(dev: torch.device) -> dict:
 
 def kernels_line(card: str, launches: dict, max_err: float,
                  shapes: dict, experiment_sweep: dict,
-                 bag_sweep: dict, lane_launches: dict, lane_max_err: float,
+                 bag_sweep: dict, soak_sweep: dict, lane_launches: dict,
+                 lane_max_err: float,
                  lane_shapes: dict) -> str:
     """The JSON ``kernels`` line: one bench sweep's sums of its four shapes
     in ms (``ms`` the wrapper's call time, as in earlier lines;
     ``device_ms`` the kernel's own), the per-shape µs, the launches of each
     driven path (``launches`` their sum), and the kernel's device and call
-    ms per experiment sweep and per bag-replay sweep from their calls per
-    sweep by shape. A second entry, ``knn5_f32_lanes``, is the same kernel
+    ms per experiment sweep, per bag-replay sweep and per soak sweep from
+    their calls per sweep by shape. A second entry, ``knn5_f32_lanes``, is the same kernel
     through its lane entry (``knn_cuda_lanes``, one launch for 8 lanes):
     one bench sweep of 8 lanes, its launches on the lane path."""
     bench = {f"{Q}x{M}": shapes[f"{Q}x{M}"] for Q, M in MAIN_PATH_SHAPES}
@@ -684,6 +696,7 @@ def kernels_line(card: str, launches: dict, max_err: float,
         "per_shape_us": shapes,
         "experiment_sweep": per_sweep(experiment_sweep),
         "bag_sweep": per_sweep(bag_sweep),
+        "soak_sweep": per_sweep(soak_sweep),
         "card": card}, {
         "name": "knn5_f32_lanes", "route": "cuda",
         "source": "vil_sensor_fusion_tpu_torch/csrc/knn.cu",
@@ -1408,17 +1421,18 @@ def compare_ingest(ba_dev: IG.BagArrays, ba_cpu: IG.BagArrays) -> dict:
             "host_streams_equal": host}
 
 
-def knn_calls_per_sweep_cpu(cfg: VIL.VilConfig, ba_cpu: IG.BagArrays,
+def knn_calls_per_sweep_cpu(lidar_cfg: L.LidarOdomConfig, sweeps: L.Sweep,
                             n: int = BAG_CPU_SWEEPS) -> int:
     """k-NN calls per sweep of the CPU's LiDAR odometry over the first ``n``
-    ingested sweeps at ``cfg`` (the count does not depend on the priors)."""
+    of ``sweeps`` (moved to the CPU) at ``lidar_cfg`` (the count does not
+    depend on the priors)."""
     cpu = torch.device("cpu")
     calls = []
     K.KERNEL_LAUNCHES = 0
     with recorded_knn_calls(calls):
-        L.odometry.run(cfg.lidar, L.odometry.init(
-            cfg.lidar, torch.float32, pose0=lie.pose_identity(device=cpu)),
-            L.Sweep(*(f[:n] for f in ba_cpu.sweeps)),
+        L.odometry.run(lidar_cfg, L.odometry.init(
+            lidar_cfg, torch.float32, pose0=lie.pose_identity(device=cpu)),
+            L.Sweep(*(f[:n].to(cpu) for f in sweeps)),
             lie.pose_identity(device=cpu).expand(n, 7))
     check(K.KERNEL_LAUNCHES == 0, "the CPU run launched the CUDA kernel")
     check(len(calls) % n == 0, f"{len(calls)} CPU k-NN calls over {n} sweeps")
@@ -1491,7 +1505,7 @@ def replay_bag(dev, tmp: Path) -> dict:
                          device=torch.device("cpu"))
     ingest = compare_ingest(ba, ba_cpu)
     ingest["cpu_ingest_s"] = time.perf_counter() - t0
-    cpu_per_sweep = knn_calls_per_sweep_cpu(cfg, ba_cpu)
+    cpu_per_sweep = knn_calls_per_sweep_cpu(cfg.lidar, ba_cpu.sweeps)
     ingest["cpu_knn_calls_per_sweep"] = cpu_per_sweep
     print("  ingest, card vs CPU: " + json.dumps(ingest), flush=True)
     check(ingest["host_streams_equal"],
@@ -1814,98 +1828,48 @@ def rerun_photometric(rec: dict, n: int, dev, dtype=torch.float32):
     return out, again
 
 
-def oracle_problem(dev, duration: float, noise: float = 0.0, seed: int = 0):
-    """tests/test_batch_oracle.py's ``_problem`` (a 10 m circle, 200 Hz IMU,
-    20 Hz VIO and 10 Hz LiDAR odometry) over ``duration`` s, made with the
-    port's ``data/synthetic`` in float64 on ``dev``."""
-    from vil_sensor_fusion_tpu_torch import convert
-    from vil_sensor_fusion_tpu_torch.data import synthetic as syn
-
-    f64 = torch.float64
-    rng = np.random.default_rng(seed)
-    traj = syn.circle(radius=10.0, period=20.0)
-    ar = lambda n: torch.arange(n, dtype=f64, device=dev)  # noqa: E731
-    imu = syn.sample_imu(traj, ar(int(duration * 200.0) + 20) / 200.0)
-    t_vio = (ar(int(duration * 20.0)) + 1.0) / 20.0
-    t_lid = (ar(int(duration * 10.0)) + 1.0) / 10.0
-    vio, lid = syn.sample_odometry(traj, t_vio), syn.sample_odometry(traj,
-                                                                     t_lid)
-    host = lambda t: t.cpu().numpy()  # noqa: E731
-    vp, lp = host(vio.poses).copy(), host(lid.poses).copy()
-    vp[:, 4:7] += rng.normal(0, noise, vp[:, 4:7].shape)
-    lp[:, 4:7] += rng.normal(0, noise, lp[:, 4:7].shape)
-    tl = fu.merge_timeline([
-        (host(t_vio), vp, host(vio.cov), np.ones(len(vp))),
-        (host(t_lid), lp, host(lid.cov), np.ones(len(lp)))])
-    cfg = fu.FusionConfig(
-        smoother=G.SmootherConfig(window=6, between_slots=12, gn_iters=5),
-        sensors=(
-            fu.SensorSpec(name="vio", optimize_after_odom=True,
-                          covariance_linear=0.02, covariance_angular=0.02,
-                          max_time_skip=0.2),
-            fu.SensorSpec(name="lidar", optimize_after_odom=False,
-                          covariance_linear=0.02, covariance_angular=0.02,
-                          max_time_skip=0.3)),
-        max_imu_per_gap=32)
-    t0 = torch.zeros((), dtype=f64, device=dev)
-    init = (traj.pose_fn(t0), traj.vel_fn(t0),
-            torch.zeros(6, dtype=f64, device=dev))
-    return cfg, convert.to_torch(tl, dev, f64), imu, init
-
-
 def drive_oracle(dev) -> dict:
-    """``graph.batch.solve_batch`` at f64 on the card against the same call
-    on the CPU (poses within 1e-9 m, ``n_between`` equal, cost within 1e-9
-    relative), then the fixed-lag ``fusion.run`` on the card over the first
+    """``oracle_report.build_problem`` (noise 0) in f64 on the card against
+    the same on the CPU: the batch MAP's poses within 1e-9 m, ``n_between``
+    equal, cost within 1e-9 relative; then ``oracle_report.run_window``
+    with a 6-keyframe window on the card over the first
     ``FIXED_LAG_DURATION`` s against the card's oracle of that timeline
     (tests/test_batch_oracle.py's bounds)."""
-    from vil_sensor_fusion_tpu_torch.graph import batch as B
+    from vil_sensor_fusion_tpu_torch import oracle_report as OR
 
-    sync = _sync_of(dev)
-    cfg, tl, imu, init = oracle_problem(dev, ORACLE_DURATION)
-    args = (cfg, tl, imu.times, imu.accel, imu.gyro, *init, 0.0)
-    sync()
-    t0 = time.perf_counter()
-    card = B.solve_batch(*args)
-    sync()
-    t1 = time.perf_counter()
-    cpu = B.solve_batch(*args, device=torch.device("cpu"))
-    t2 = time.perf_counter()
+    card = OR.build_problem(ORACLE_DURATION, 0.0, device=dev)
+    cpu = OR.build_problem(ORACLE_DURATION, 0.0, device="cpu")
+    cb, pb = card["batch"], cpu["batch"]
     nums = {
-        "states": int(card.poses.shape[0]), "n_between": card.n_between,
-        "card_s": t1 - t0, "cpu_s": t2 - t1, "cost": card.cost,
-        "pose_err_m": float((card.poses.cpu() - cpu.poses).abs().max()),
-        "vel_err": float((card.vels.cpu() - cpu.vels).abs().max()),
-        "bias_err": float((card.biases.cpu() - cpu.biases).abs().max()),
-        "cost_rel_err": abs(card.cost - cpu.cost) / max(abs(cpu.cost), 1.0)}
-    check(card.poses.device == dev and card.poses.dtype == torch.float64,
+        "states": int(cb.poses.shape[0]), "n_between": cb.n_between,
+        "card_s": card["wall_batch"], "cpu_s": cpu["wall_batch"],
+        "cost": cb.cost, "ate_batch_m": card["ate_batch"],
+        "pose_err_m": float((cb.poses.cpu() - pb.poses).abs().max()),
+        "vel_err": float((cb.vels.cpu() - pb.vels).abs().max()),
+        "bias_err": float((cb.biases.cpu() - pb.biases).abs().max()),
+        "cost_rel_err": abs(cb.cost - pb.cost) / max(abs(pb.cost), 1.0)}
+    check(cb.poses.device == dev and cb.poses.dtype == torch.float64,
           "the oracle left the card or float64")
-    check(bool(torch.isfinite(card.poses).all()), "non-finite oracle pose")
-    check(card.n_between == cpu.n_between and card.n_between > 100,
-          f"oracle n_between {card.n_between} / {cpu.n_between}")
+    check(bool(torch.isfinite(cb.poses).all()), "non-finite oracle pose")
+    check(cb.n_between == pb.n_between and cb.n_between > 100,
+          f"oracle n_between {cb.n_between} / {pb.n_between}")
     check(nums["pose_err_m"] <= 1e-9, f"oracle card vs CPU poses "
           f"{nums['pose_err_m']} m")
     check(nums["cost_rel_err"] <= 1e-9, f"oracle card vs CPU cost "
           f"{nums['cost_rel_err']}")
 
-    cfg, tl, imu, (pose0, vel0, bias0) = oracle_problem(dev,
-                                                        FIXED_LAG_DURATION)
-    sync()
-    t0 = time.perf_counter()
-    sol = B.solve_batch(cfg, tl, imu.times, imu.accel, imu.gyro, pose0,
-                        vel0, bias0, 0.0)
-    sync()
-    t1 = time.perf_counter()
-    es = fu.init(cfg, pose0, vel0, bias0, torch.zeros_like(tl.times[0]))
-    _, out = fu.run(cfg, es, tl, imu.times, imu.accel, imu.gyro)
-    sync()
-    t2 = time.perf_counter()
-    d = (out.poses[:, 4:7] - sol.poses[1:, 4:7]).norm(dim=-1).cpu().numpy()
-    nums.update(fixed_lag_events=len(d), fixed_lag_oracle_s=t1 - t0,
-                fixed_lag_run_s=t2 - t1, gap_max_m=float(d.max()),
-                gap_mean_m=float(d.mean()))
+    prob = OR.build_problem(FIXED_LAG_DURATION, 0.0, device=dev)
+    case = OR.run_window(prob, FIXED_LAG_DURATION, 0.0, 6)
+    nums.update(fixed_lag_events=case["events"],
+                fixed_lag_oracle_s=prob["wall_batch"],
+                fixed_lag_run_s=case["wall_stream_s"],
+                gap_max_m=case["delta_max_m"],
+                gap_mean_m=case["delta_mean_m"],
+                fixed_lag_case=case)
     print("  oracle: " + json.dumps(nums), flush=True)
-    check(bool(np.isfinite(d).all()), "non-finite fixed-lag pose")
+    check(bool(np.isfinite([case["delta_max_m"], case["delta_mean_m"],
+                            case["ate_stream_m"]]).all()),
+          "non-finite fixed-lag pose")
     check(nums["gap_max_m"] < 0.05 and nums["gap_mean_m"] < 0.02,
           f"fixed-lag vs full MAP gap {nums['gap_max_m']} / "
           f"{nums['gap_mean_m']} m")
@@ -1996,7 +1960,7 @@ def replay_bag_photometric(dev, tmp: Path, geo: dict) -> dict:
 # --------------------------------------------------------------------------
 
 BENCH_LANES = 8         # the bench's BATCH (bench.py:64), 8 town seeds
-BENCH_DURATION = 0.6    # s per lane: 6 sweeps and 12 frames, 18 events
+BENCH_DURATION = 0.4    # s per lane: 4 sweeps and 8 frames, 12 events
 BENCH_REPS = 1
 
 
@@ -2135,6 +2099,105 @@ def check_lane_knn_calls(calls: list) -> float:
     return max(r[1] for r in by_shape.values())
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the long-drive soak, chunked with carried state
+# --------------------------------------------------------------------------
+
+SOAK_DURATION = 1.0     # s of the soak's drive: 2 chunks, 10 sweeps
+SOAK_CHUNK = 0.5        # s per chunk: 5 sweeps and 10 frames, 15 events
+
+
+def drive_soak(dev) -> dict:
+    """Phase 12: ``soak.run_soak`` on the card at its full width (the
+    800×600 camera, 24 landmarks, full sweeps, the soak's rig) with the
+    checkpoint test: the first chunk, the second from the carried state,
+    then the second again from the checkpoint restored into a fresh
+    template. Every fused pose of the three chunk runs is kept for the
+    finiteness check, and the inputs of every k-NN call of the first chunk
+    for the kernel check; the first chunk's sweeps for a CPU count of the
+    k-NN calls per sweep."""
+    from vil_sensor_fusion_tpu_torch import soak as SK
+
+    runs, fused, calls, first = [0], [], [], {}
+
+    def count_chunks(fn):
+        def run(rig, idx, state, py, cu, cs, cd, prj, imu_w, sweeps, *a):
+            runs[0] += 1
+            if runs[0] == 1:
+                first.update(lidar=rig.lidar, sweeps=sweeps)
+            new_state, out = fn(rig, idx, state, py, cu, cs, cd, prj, imu_w,
+                                sweeps, *a)
+            fused.append(out.fused.poses)
+            return new_state, out
+        return run
+
+    def record(fn):
+        def knn(q, t, m, k=K.K_DEFAULT):
+            if runs[0] == 1:
+                calls.append((q.clone(), t.clone(), m.clone()))
+            return fn(q, t, m, k)
+        return knn
+
+    sync = _sync_of(dev)
+    sync()
+    K.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with wrapped((SK, "estimator_chunk", count_chunks),
+                 (K, "knn", record)), tempfile.TemporaryDirectory(
+                     dir=REPO / "build") as tmp:
+        summary, metrics = SK.run_soak(
+            duration=SOAK_DURATION, chunk=SOAK_CHUNK, cam_w=CAM_W,
+            cam_h=CAM_H, landmarks=N_SLOTS, checkpoint_test=True,
+            checkpoint_dir=tmp, device=dev)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = K.KERNEL_LAUNCHES
+    sweeps_per_chunk = round(SOAK_CHUNK * 10)
+    per_sweep = {}
+    for q, t, _ in calls:
+        key = f"{q.shape[0]}x{t.shape[0]}"
+        per_sweep[key] = per_sweep.get(key, 0) + 1
+    per_sweep = {k: v // sweeps_per_chunk for k, v in per_sweep.items()}
+    cpu_per_sweep = knn_calls_per_sweep_cpu(first["lidar"], first["sweeps"])
+    nums = {
+        "summary": summary, "wall_s": wall, "chunk_runs": runs[0],
+        "per_chunk": [{k: m[k] for k in (
+            "chunk", "t0", "wall_s", "wall_pyr", "wall_cand", "wall_est",
+            "err_max", "vio_err_max", "lidar_err_max", "map_corner",
+            "map_surf", "keep", "healthy")} | {
+            "realtime_factor": SOAK_CHUNK / m["wall_s"],
+            "events_per_s": 3 * sweeps_per_chunk / m["wall_s"]}
+            for m in metrics],
+        "launches": launches, "knn_calls_per_sweep": per_sweep,
+        "cpu_knn_calls_per_sweep": cpu_per_sweep}
+    print("  " + json.dumps(nums), flush=True)
+    lidar = first["lidar"]
+    check(runs[0] == 3 and len(metrics) == 2,
+          f"{runs[0]} chunk runs, {len(metrics)} chunk metrics")
+    check(all(bool(torch.isfinite(p).all()) for p in fused),
+          "soak: non-finite fused pose")
+    check(summary["err_max_m"] < 0.05 * summary["distance_m"],
+          f"soak drift {summary['err_max_m']} m over "
+          f"{summary['distance_m']} m")
+    check(summary["healthy_mean"] > 0.95,
+          f"soak healthy share {summary['healthy_mean']}")
+    check(summary["keep_mean"] > 0.5,
+          f"soak gate keep share {summary['keep_mean']}")
+    check(1000 < summary["map_surf_final"] <= lidar.surf_map.capacity
+          and 0 < summary["map_corner_final"] <= lidar.corner_map.capacity,
+          f"soak maps {summary['map_corner_final']} / "
+          f"{summary['map_surf_final']}")
+    check(summary["resume_max_delta"] == 0.0,
+          f"soak checkpoint resume differs by "
+          f"{summary['resume_max_delta']}")
+    check(launches == cpu_per_sweep * sweeps_per_chunk * runs[0],
+          f"soak: {launches} k-NN launches, want {cpu_per_sweep} per sweep "
+          f"({cpu_per_sweep * sweeps_per_chunk * runs[0]})")
+    check(len(calls) == cpu_per_sweep * sweeps_per_chunk,
+          f"soak: {len(calls)} k-NN calls recorded in the first chunk")
+    return {"numbers": nums, "knn_calls": calls}
+
+
 def main() -> int:
     # Phase 1: the device.
     if not torch.cuda.is_available():
@@ -2142,11 +2205,18 @@ def main() -> int:
               "card only", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    card = gpu_line()
+    card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     _precision.require_full_f32()
+    phase_s, mark = {}, [time.perf_counter()]
+
+    def done(name):
+        """Record the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
 
     # Phase 2: build the kernel.
     t0 = time.perf_counter()
@@ -2168,6 +2238,7 @@ def main() -> int:
     print(f"[kernel times, lanes] k-NN, k=5, {KNN_LANES} lanes, us per call",
           flush=True)
     lane_shapes = time_knn_lane_shapes(dev)
+    done("build_and_kernel")
 
     # Phase 4: the image-driven full path on the card.
     cfg, fcfg = main_path_config()
@@ -2179,17 +2250,20 @@ def main() -> int:
           f"{len(full['knn_calls'])} k-NN calls", flush=True)
     max_err = max(max_err, check_drive_knn(full.pop("knn_calls")))
     launches_4 = full["numbers"]["launches"][1]
+    done("full_path")
 
     # Phase 5: synthetic feature tracks, shorter.
     print(f"[synthetic tracks] town drive {SHORT_DURATION} s -> run_vil",
           flush=True)
     drive_synthetic_tracks(cfg, fcfg, dev)
+    done("synthetic_tracks")
 
     # Phase 6: CPU cross-check of the image-driven run.
     print(f"[cross-check] first {CROSS_SWEEPS} sweeps on the CPU", flush=True)
     cross_check(cfg, fcfg, x, (full["frames"], full["result"]))
     src9 = lane_source(x, full["result"])
     del full, x, sc
+    done("cross_check")
 
     # Phase 7: the degeneracy-experiment grid.
     print(f"[experiments] smoke grid, {EXPERIMENT_DURATION} s per cell: "
@@ -2197,6 +2271,7 @@ def main() -> int:
           flush=True)
     exp = drive_experiments(dev)
     max_err = max(max_err, exp["max_err"])
+    done("experiments")
 
     # Phase 8: raw-sensor bag replay through the CLI at the reference rig.
     # The bag stays in build/ until phase 10 has replayed it again.
@@ -2207,6 +2282,7 @@ def main() -> int:
     tmp = Path(tmp_dir.name)
     bag = replay_bag(dev, tmp)
     max_err = max(max_err, bag["max_err"])
+    done("bag_replay")
 
     # Phase 9: lanes and collectives on a one-rank mesh of the card.
     print(f"[lanes and collectives] {LANES} lanes of phase 4's first "
@@ -2217,6 +2293,7 @@ def main() -> int:
           f"{len(par['knn_calls'])} k-NN calls", flush=True)
     max_err = max(max_err, check_drive_knn(par.pop("knn_calls")))
     dist.destroy_process_group()
+    done("lanes_and_collectives")
 
     # Phase 10: phase 8's bag through the photometric VIO; the oracle.
     print(f"[photometric bag replay] phase 8's bag -> cli run --bag with "
@@ -2224,6 +2301,7 @@ def main() -> int:
     photo = replay_bag_photometric(dev, tmp, bag)
     tmp_dir.cleanup()
     max_err = max(max_err, photo["max_err"])
+    done("photometric_and_oracle")
 
     # Phase 11: cli bench, every stage batched over 8 lanes.
     print(f"[bench lanes] cli bench --lanes {BENCH_LANES} --duration "
@@ -2234,6 +2312,18 @@ def main() -> int:
           f"{len(bench['knn_calls'])} lane k-NN calls", flush=True)
     lane_max_err = max(lane_max_err,
                        check_lane_knn_calls(bench.pop("knn_calls")))
+    done("bench_lanes")
+
+    # Phase 12: the long-drive soak, chunked, with the checkpoint test.
+    print(f"[soak] soak.run_soak {SOAK_DURATION} s in {SOAK_CHUNK} s chunks "
+          f"at {CAM_W}x{CAM_H}, {N_SLOTS} landmarks, checkpoint test",
+          flush=True)
+    soak = drive_soak(dev)
+    print(f"[kernel vs plain on the soak] the first chunk's "
+          f"{len(soak['knn_calls'])} k-NN calls", flush=True)
+    max_err = max(max_err, check_drive_knn(soak.pop("knn_calls")))
+    done("soak")
+    print("[phase seconds] " + json.dumps(phase_s), flush=True)
 
     launches = {"town_image_drive": launches_4}
     launches.update({f"experiments_{k}": c["launches"]
@@ -2243,10 +2333,12 @@ def main() -> int:
     launches["bag_replay_photometric"] = photo["numbers"]["launches"]
     bn = bench["numbers"]
     launches["bench_single_stream"] = bn["knn_launches_single_stream"]
+    launches["soak"] = soak["numbers"]["launches"]
     print(f"card: {card}")
     print(kernels_line(card, launches, max_err, shapes,
                        exp["knn_calls_per_sweep"],
                        bag["numbers"]["knn_calls_per_sweep"],
+                       soak["numbers"]["knn_calls_per_sweep"],
                        {"bench_lanes": bn["knn_launches_lanes"]},
                        lane_max_err,
                        lane_shapes))

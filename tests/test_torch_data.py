@@ -179,3 +179,43 @@ def test_worlds_match_jax_in_structure():
         sunk = bmin[:, 2] < -50.0
         np.testing.assert_array_equal(sunk, inside)
         assert sunk.any() and (~sunk).any()
+
+
+@pytest.mark.parametrize("name, kw", [
+    pytest.param("circle", {}, id="circle"),
+    pytest.param("straight_tunnel", dict(speed=6.0, sway=0.05),
+                 id="straight_tunnel"),
+    pytest.param("figure_eight", dict(radius=12.0, period=30.0),
+                 id="figure_eight"),
+])
+def test_trajectories_and_ground_truth_match_jax(name, kw):
+    """The analytic trajectories' ground truth (poses and world velocities,
+    ``sample_ground_truth``) and IMU streams (forward-mode derivatives,
+    nested in ``figure_eight``'s yaw) at f64."""
+    t = np.arange(40) / 20.0 + 0.013
+    tj, tt = getattr(JS, name)(**kw), getattr(TS, name)(**kw)
+    gj = JS.sample_ground_truth(tj, jnp.asarray(t, DT))
+    gt = TS.sample_ground_truth(tt, torch.from_numpy(t))
+    assert type(gt).__name__ == "GroundTruth" == type(gj).__name__
+    assert gt._fields == gj._fields
+    np.testing.assert_array_equal(gt.times.numpy(), t)
+    np.testing.assert_allclose(gt.poses.numpy(), np.asarray(gj.poses),
+                               atol=1e-12)
+    np.testing.assert_allclose(gt.vels.numpy(), np.asarray(gj.vels),
+                               atol=1e-12)
+    ij = JS.sample_imu(tj, jnp.asarray(t, DT))
+    it = TS.sample_imu(tt, torch.from_numpy(t))
+    np.testing.assert_allclose(it.accel.numpy(), np.asarray(ij.accel),
+                               rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(it.gyro.numpy(), np.asarray(ij.gyro),
+                               rtol=1e-9, atol=1e-9)
+
+
+def test_data_package_reexports_like_jax():
+    from vil_sensor_fusion_tpu import data as JD
+    from vil_sensor_fusion_tpu_torch import data as TD
+
+    for name in JD.__all__:
+        assert hasattr(TD, name), name
+        if name != "synthetic":
+            assert getattr(TD, name) is getattr(TS, name), name

@@ -176,6 +176,30 @@ def test_smoother_keyframe_between_solve_match_jax(tiny):
     assert TSM.SmootherConfig().damping == JSM.SmootherConfig().damping == 1e-9
 
 
+@pytest.mark.parametrize("anchor", [False, True], ids=["plain", "anchor"])
+def test_smoother_cost_matches_jax(tiny, anchor):
+    """``smoother.cost`` (prior + IMU + between + unary terms) at the
+    engine's final state, with one unary anchor added in the second case,
+    and at a perturbed state."""
+    cfg, _, _, _, es_j, _ = tiny
+    scfg = cfg.smoother
+    s_j = es_j.smoother
+    if anchor:
+        meas = np.asarray(s_j.states.poses[2]).copy()
+        meas[4:7] += [0.05, -0.02, 0.01]
+        s_j = JSM.add_unary(scfg, s_j, jnp.asarray(2, jnp.int32),
+                            jnp.asarray(meas), 0.01 * jnp.eye(6, dtype=DT),
+                            jnp.asarray(1.0))
+    moved = s_j._replace(states=s_j.states._replace(
+        vels=s_j.states.vels + 0.1))
+    for s in (s_j, moved):
+        cj = float(JSM.cost(scfg, s))
+        ct = TSM.cost(_t(scfg), _t(s))
+        assert ct.dtype == torch.float64 and ct.shape == ()
+        assert abs(float(ct) - cj) <= 1e-9 * max(abs(cj), 1.0), (ct, cj)
+    assert float(JSM.cost(scfg, moved)) > float(JSM.cost(scfg, s_j))
+
+
 def test_non_pd_covariance_gives_nan_not_an_exception():
     """torch.linalg.cholesky raises on a matrix that is not positive
     definite; jnp.linalg.cholesky returns NaN. The port keeps the NaN."""

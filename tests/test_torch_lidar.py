@@ -331,3 +331,54 @@ def test_odometry_emits_dists_like_jax():
         want = np.broadcast_to(_np(getattr(zj, f)),
                                (3,) + _np(getattr(zj, f)).shape)
         np.testing.assert_array_equal(getattr(off.dists, f).numpy(), want)
+
+
+@pytest.mark.parametrize("kind", ["line", "plane"])
+def test_correspondences_match_jax(world, kind):
+    """``icp.line_correspondences`` / ``plane_correspondences`` (5-NN fits,
+    then residuals and Jacobians at the same pose) against JAX's at f64:
+    the weights everywhere, residuals and Jacobians where the weight is
+    not zero (a rejected fit's direction is that of a degenerate scatter,
+    arbitrary on either side; the normal equations zero those rows)."""
+    f64 = jnp.float64
+    w64 = world._replace(**{f: getattr(world, f).astype(f64)
+                            for f in world._fields})
+    p0 = _pose().astype(f64)
+    p1 = JL.pose_retract(p0, jnp.asarray([0.2, 0.05, 0.0, 0.0, 0.0, 0.02],
+                                         f64))
+    f0 = JF.extract(JR.raycast(w64, p0))
+    f1 = JF.extract(JR.raycast(w64, p1))
+    if kind == "line":
+        m = _map_from((f0.less_sharp, f0.less_sharp_mask), p0, 0.2, 4096)
+        args = (p1, f1.less_sharp, f1.less_sharp_mask) + m
+        fj, ft = JLi.icp.line_correspondences, TLi.icp.line_correspondences
+    else:
+        m = _map_from((jnp.concatenate([f0.flat, f0.less_flat]),
+                       jnp.concatenate([f0.flat_mask, f0.less_flat_mask])),
+                      p0, 0.4, 8192)
+        args = (p1, jnp.concatenate([f1.flat, f1.less_flat]),
+                jnp.concatenate([f1.flat_mask, f1.less_flat_mask])) + m
+        fj, ft = JLi.icp.plane_correspondences, TLi.icp.plane_correspondences
+    cfg = JLi.IcpConfig(degen_eigval=5.0)
+    rj = jax.jit(lambda *a: fj(*a, cfg))(*args)
+    rt = ft(*_t(args), _t(cfg))
+    ok = _np(rj[2]) > 0
+    np.testing.assert_array_equal(rt[2].numpy(), _np(rj[2]))
+    for name, a, b in zip(("res", "J"), rt, rj):
+        assert a.dtype == torch.float64 and a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy()[ok], _np(b)[ok], rtol=1e-9,
+                                   atol=1e-9, err_msg=name)
+    assert ok.sum() > 20                  # correspondences were found
+
+
+def test_constant_velocity_guess_matches_jax():
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(2, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    p = np.concatenate([q, rng.normal(size=(2, 3))], axis=1)
+    gj = JLi.constant_velocity_guess(jnp.asarray(p[0]), jnp.asarray(p[1]))
+    gt = TLi.constant_velocity_guess(torch.from_numpy(p[0]),
+                                     torch.from_numpy(p[1]))
+    np.testing.assert_allclose(gt.numpy(), _np(gj), atol=1e-12)
+    assert TLi.constant_velocity_guess is TLi.odometry.constant_velocity_guess
+    assert TLi.organize is TRI.organize

@@ -13,6 +13,8 @@ gate on sweep 2 (n_corr 1398 against 1397), which shifts that pose by
 1.3e-6: the in-run LiDAR poses are held to 1e-5 and n_corr to ±2. Also
 here: importing the whole port loads no JAX."""
 
+import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -163,7 +165,9 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "assert len(names) > 25, names\n"
         "assert {'vil_sensor_fusion_tpu_torch.frontends.vio.photometric',"
-        " 'vil_sensor_fusion_tpu_torch.graph.batch'} <= set(names)\n"
+        " 'vil_sensor_fusion_tpu_torch.graph.batch',"
+        " 'vil_sensor_fusion_tpu_torch.soak',"
+        " 'vil_sensor_fusion_tpu_torch.oracle_report'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'vil_sensor_fusion_tpu'))\n"
         "assert not bad, bad\n")
@@ -184,3 +188,75 @@ def test_every_jax_module_has_a_port_counterpart():
     jax_modules = modules("vil_sensor_fusion_tpu")
     assert len(jax_modules) > 40
     assert jax_modules - modules("vil_sensor_fusion_tpu_torch") == set()
+
+
+def _public_names(path: str) -> set:
+    """Public top-level names a module defines (functions, classes,
+    assignments), and in a package's ``__init__.py`` also those it
+    re-exports by import."""
+    tree = ast.parse(open(path).read())
+    init = os.path.basename(path) == "__init__.py"
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(n.id for t in node.targets for n in ast.walk(t)
+                         if isinstance(n, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            names.add(node.target.id)
+        elif init and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+# JAX public names whose port counterpart has another name (module of the
+# JAX package → {name: the port's counterpart as "module:attribute"}).
+_KNN = "vil_sensor_fusion_tpu_torch.ops.knn"
+_PRECISION = "vil_sensor_fusion_tpu_torch._precision:require_full_f32"
+RENAMED = {
+    "ops/knn.py": {
+        "knn_pallas": f"{_KNN}:knn_cuda",
+        "knn_xla": f"{_KNN}:knn_torch",
+        "knn_topk": f"{_KNN}:knn_torch",
+        "knn_approx": f"{_KNN}:knn",          # the port's one exact k-NN
+        "PALLAS_MAX_TARGETS": f"{_KNN}:_plan",
+        "QUERY_BLOCK": f"{_KNN}:_plan",
+        "TARGET_BLOCK": f"{_KNN}:_plan",
+    },
+    "ops/__init__.py": {
+        "knn_pallas": "vil_sensor_fusion_tpu_torch.ops:knn_cuda",
+        "knn_xla": "vil_sensor_fusion_tpu_torch.ops:knn_torch",
+    },
+    "_precision.py": {
+        "ESTIMATION_PRECISION": _PRECISION,
+        "estimation_precision": _PRECISION,
+    },
+    # Unused in the JAX package; the port's query tiling is the kernel's
+    # plan.
+    "frontends/lidar/icp.py": {"QUERY_CHUNK": f"{_KNN}:_plan"},
+}
+
+
+def _jax_module_files():
+    root = os.path.join(REPO, "vil_sensor_fusion_tpu")
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files
+                  if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("rel", _jax_module_files())
+def test_every_jax_public_name_has_a_port_counterpart(rel):
+    """Every public top-level name of a JAX module has a namesake in the
+    port's module, or a named counterpart in ``RENAMED`` that exists."""
+    want = _public_names(os.path.join(REPO, "vil_sensor_fusion_tpu", rel))
+    have = _public_names(os.path.join(REPO, "vil_sensor_fusion_tpu_torch",
+                                      rel))
+    renamed = RENAMED.get(rel, {})
+    assert want - have - set(renamed) == set()
+    assert set(renamed) <= want - have, "a renamed entry has a namesake"
+    for target in renamed.values():
+        mod, attr = target.split(":")
+        assert hasattr(importlib.import_module(mod), attr), target

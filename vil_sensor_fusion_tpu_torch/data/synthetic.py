@@ -1,7 +1,8 @@
 """Synthetic sensor streams with exact ground truth.
 
 Port of ``vil_sensor_fusion_tpu/data/synthetic.py`` (``trajectory``,
-``circle``, ``sample_imu``, ``sample_odometry``). Trajectories
+``circle``, ``straight_tunnel``, ``figure_eight``, ``sample_imu``,
+``sample_odometry``, ``sample_ground_truth``). Trajectories
 are smooth functions of a scalar time tensor; velocity, acceleration and
 body rate come from forward-mode autodiff (``torch.func.jvp`` along the
 scalar time, which is the ``jax.jacfwd`` of a scalar-input function), and
@@ -46,6 +47,11 @@ class OdometryStream(NamedTuple):
     poses: torch.Tensor    # (M, 7) world pose (noisy)
     cov: torch.Tensor      # (M, 6, 6) pose covariance (rho, theta order)
 
+
+class GroundTruth(NamedTuple):
+    times: torch.Tensor
+    poses: torch.Tensor    # (M, 7)
+    vels: torch.Tensor     # (M, 3)
 
 
 def _d_dt(fn: Callable) -> Callable:
@@ -92,6 +98,40 @@ def circle(radius: float = 20.0, period: float = 30.0,
 
     def rot_fn(t):
         yaw = w * t + torch.pi / 2.0  # tangent direction
+        return lie.so3_exp(torch.stack([0.0 * t, 0.0 * t, yaw]))
+
+    return trajectory(pos_fn, rot_fn)
+
+
+def straight_tunnel(speed: float = 8.0, sway: float = 0.02) -> Trajectory:
+    """Constant-velocity straight line (x-axis) with tiny sway: the
+    translation-degenerate "tunnel" drive, where ICP sees two parallel
+    walls and the along-track direction is unobservable."""
+    def pos_fn(t):
+        return torch.stack([speed * t, sway * torch.sin(0.7 * t), 0.0 * t])
+
+    def rot_fn(t):
+        return lie.so3_exp(torch.stack([0.0 * t, 0.0 * t,
+                                        sway * torch.sin(0.3 * t)]))
+
+    return trajectory(pos_fn, rot_fn)
+
+
+def figure_eight(radius: float = 15.0, period: float = 40.0) -> Trajectory:
+    """Lemniscate path: richer excitation of all axes; yaw along the
+    velocity."""
+    w = 2.0 * torch.pi / period
+
+    def pos_fn(t):
+        return torch.stack([radius * torch.sin(w * t),
+                            radius * torch.sin(w * t) * torch.cos(w * t),
+                            0.3 * torch.sin(3.0 * w * t)])
+
+    vx = _d_dt(pos_fn)
+
+    def rot_fn(t):
+        v = vx(t)
+        yaw = torch.atan2(v[1], v[0])
         return lie.so3_exp(torch.stack([0.0 * t, 0.0 * t, yaw]))
 
     return trajectory(pos_fn, rot_fn)
@@ -152,3 +192,10 @@ def sample_odometry(
                         dtype=times.dtype, device=times.device)
     cov = torch.diag(diag).expand(M, 6, 6).clone()
     return OdometryStream(times=times, poses=poses, cov=cov)
+
+
+def sample_ground_truth(traj: Trajectory,
+                        times: torch.Tensor) -> GroundTruth:
+    """Exact poses and world velocities of ``traj`` at ``times``."""
+    return GroundTruth(times=times, poses=vmap(traj.pose_fn)(times),
+                       vels=vmap(traj.vel_fn)(times))

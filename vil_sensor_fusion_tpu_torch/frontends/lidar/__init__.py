@@ -8,14 +8,19 @@ from . import rangeimage
 from . import voxelmap
 from .features import FeatureSet, extract
 from .icp import IcpConfig, IcpResult, register
-from .odometry import LidarOdomConfig, LidarOdomResult, LidarOdomState
-from .rangeimage import AZIMUTH, RINGS, Sweep, undistort
+from .odometry import (
+    LidarOdomConfig,
+    LidarOdomResult,
+    LidarOdomState,
+    constant_velocity_guess,
+)
+from .rangeimage import AZIMUTH, RINGS, Sweep, organize, undistort
 from .voxelmap import VoxelMap, VoxelMapConfig
 
 __all__ = [
     "features", "icp", "odometry", "rangeimage", "voxelmap",
     "FeatureSet", "extract", "IcpConfig", "IcpResult", "register",
     "LidarOdomConfig", "LidarOdomResult", "LidarOdomState",
-    "AZIMUTH", "RINGS", "Sweep", "undistort",
-    "VoxelMap", "VoxelMapConfig",
+    "constant_velocity_guess", "AZIMUTH", "RINGS", "Sweep", "organize",
+    "undistort", "VoxelMap", "VoxelMapConfig",
 ]

@@ -110,6 +110,16 @@ def line_residuals(pose, corners, centroid, d, w):
     return res, J, w
 
 
+def line_correspondences(pose, corners, corner_mask, map_corners, map_mask,
+                         cfg: IcpConfig):
+    """Point-to-line: 5-NN line fits in the corner map, then the
+    perpendicular displacement from each line. Returns (res (Q,3),
+    J (Q,3,6), w (Q,)), J w.r.t. the right (rho, theta) perturbation."""
+    centroid, d, w = line_fits(pose, corners, corner_mask, map_corners,
+                               map_mask, cfg)
+    return line_residuals(pose, corners, centroid, d, w)
+
+
 def plane_fits(pose, surfs, surf_mask, map_surfs, map_mask, cfg: IcpConfig):
     """5-NN plane fits in the surface map at ``pose``: returns
     (normal (Q,3), offset (Q,), w (Q,)) with plane ``n·x + offset = 0``."""
@@ -140,6 +150,17 @@ def plane_residuals(pose, surfs, n, d_off, w):
     res = (torch.einsum("qi,qi->q", n, p_map) + d_off)[:, None]
     J = torch.einsum("qi,qik->qk", n, _point_jacobian(pose, surfs))[:, None, :]
     return res, J, w
+
+
+def plane_correspondences(pose, surfs, surf_mask, map_surfs, map_mask,
+                          cfg: IcpConfig):
+    """Point-to-plane: 5-NN plane fits in the surface map (smallest
+    eigenvector of the neighbour scatter, with the fit-validity checks),
+    then the signed distance to each plane. Returns (res (Q,1), J (Q,1,6),
+    w (Q,))."""
+    n, d_off, w = plane_fits(pose, surfs, surf_mask, map_surfs, map_mask,
+                             cfg)
+    return plane_residuals(pose, surfs, n, d_off, w)
 
 
 def accumulate_normal_eqs(res, J, w):

@@ -279,3 +279,10 @@ def run_lanes(
     kernel launch for all lanes (``ops.knn``'s batching rule)."""
     return torch.func.vmap(lambda st, sw, g: run(cfg, st, sw, g))(
         state, sweeps, pose_guesses)
+
+
+def constant_velocity_guess(prev_pose, prev_prev_pose):
+    """Motion-model prior: extrapolate the last relative motion (LOAM's
+    internal motion model when no external prior is available)."""
+    d = lie.pose_between(prev_prev_pose, prev_pose)
+    return lie.pose_compose(prev_pose, d)

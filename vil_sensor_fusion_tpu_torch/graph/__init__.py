@@ -9,6 +9,7 @@ from .smoother import (
     add_between,
     add_keyframe,
     add_unary,
+    cost,
     init,
     latest,
     solve,
@@ -16,6 +17,6 @@ from .smoother import (
 
 __all__ = [
     "factors", "smoother", "KeyframeStates", "STATE_DIM", "SmootherConfig",
-    "SmootherState", "add_between", "add_keyframe", "add_unary", "init",
+    "SmootherState", "add_between", "add_keyframe", "add_unary", "cost", "init",
     "latest", "solve",
 ]

@@ -290,6 +290,20 @@ def solve(cfg: SmootherConfig, s: SmootherState) -> SmootherState:
     return s._replace(states=x)
 
 
+def cost(cfg: SmootherConfig, s: SmootherState) -> torch.Tensor:
+    """Total weighted squared error at the current estimates (diagnostics):
+    the marginal prior plus the IMU, between and unary terms."""
+    x = s.states
+    d0 = F.local_window(s.prior_lin, x).reshape(-1)
+    c = 0.5 * d0 @ s.prior_H @ d0 + s.prior_g @ d0
+    r, _, _, info = _linearize_imu_slots(cfg, s, x)
+    c = c + 0.5 * torch.einsum("sr,srq,sq->", r, info, r)
+    rb, _, _, binfo = _linearize_between_slots(s, x)
+    c = c + 0.5 * torch.einsum("sr,srq,sq->", rb, binfo, rb)
+    ru, _, uinfo = _linearize_unary_slots(s, x)
+    return c + 0.5 * torch.einsum("sr,srq,sq->", ru, uinfo, ru)
+
+
 # ---------------------------------------------------------------------------
 # Window management
 # ---------------------------------------------------------------------------
