@@ -133,13 +133,32 @@ result line:
    populated and within capacity, resume Δ exactly 0; k-NN launches equal
    to a CPU count per sweep of the first chunk's sweeps; the kernel
    against ``knn_torch`` on every k-NN call of the first chunk.
+13. The five user scripts, as modules of the port, through their public
+   functions at full width with the depth cut: ``profile_stages.run`` at
+   400×300 over 4 frames and 2 sweeps, one timed call per row;
+   ``lidar_ablation.main`` over 8 town lanes × 0.3 s, all six candidate
+   schedules, one timed call each; ``icp_scaling_curve.main(["--sizes",
+   "1"])`` (a one-rank NCCL world in a child process);
+   ``multihost_bench.run_cluster(1, 1)`` as a worker process at 6 events
+   and one timed pass; ``window_sweep_quick.main`` at 0.3 s, window 4, in
+   float64. The curve and the bench's worker, which start processes, run
+   in two threads beside the other three. Checks: every time and pose finite; the ablation's error max
+   < 0.5 m for every candidate, the window sweep's ATE < 0.05 m, the
+   curve's ``n_corr`` > 0, the bench's ``global_events`` = batch × ranks
+   × events; the k-NN launches of the profile (per row), the ablation (per
+   sweep per candidate, one launch for all lanes) and the curve (in its
+   child) equal to a CPU count of the same calls; the kernel against
+   ``knn_torch`` on every k-NN call of the profile's map-stage register
+   row, and against ``knn_torch_lanes`` on every lane call of the first
+   candidate's first call.
 
-After phase 12 a ``[phase seconds]`` line gives each phase's wall. The
+After phase 13 a ``[phase seconds]`` line gives each phase's wall. The
 last two lines are a JSON object describing the kernels (one sweep's
 sums in ms: ``ms`` the wrapper's call time, ``device_ms`` the kernel's
 own; per-shape µs under ``per_shape_us``; launches per driven path; the
 kernel's ms per experiment, bag-replay and soak sweep; the card; and
-the lane entry ``knn5_f32_lanes`` with one 8-lane bench sweep's sums) and
+the lane entry ``knn5_f32_lanes`` with one 8-lane bench sweep's sums and
+the launches of the bench lanes and the ablation) and
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX. The stages
 are timed with the port's ``utils.tracing.StageTimer``.
 """
@@ -156,6 +175,7 @@ import sys
 import tempfile
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -201,9 +221,12 @@ EXPERIMENT_SHAPES = ((1920, 4096), (3984, 8192))
 # sweeps, phase 9 its first 18 events); the synthetic-track drive from 1 s
 # to 0.5 s; the experiment cells from 1.5 s to 1.2 s (a tunnel cell under
 # 6 s labels at most one sweep either way; the corridor and the arena give
-# the pooled labels both classes); phase 11's bench lanes from 0.6 s to
-# 0.4 s when phase 12 came.
-EXPERIMENT_DURATION = 1.2   # s per experiment cell: 12 sweeps, 24 frames
+# the pooled labels both classes), and to 1.0 s when phase 13 came (a CPU
+# build of the smoke grid at 1.0 s still labels the corridor's 10 sweeps
+# translation-degenerate, the arena's rotation-degenerate and one tunnel
+# sweep, so both pooled label sets keep both classes; phase 7 checks
+# that); phase 11's bench lanes from 0.6 s to 0.4 s when phase 12 came.
+EXPERIMENT_DURATION = 1.0   # s per experiment cell: 10 sweeps, 20 frames
 CROSS_EXP_SWEEPS = 5        # corridor sweeps (and 10 frames) rerun on the CPU
 DURATION = 1.0          # s of the town drive: 10 sweeps, 20 VIO frames
 SHORT_DURATION = 0.5    # s of the synthetic-track drive: 5 sweeps
@@ -1276,6 +1299,10 @@ def drive_experiments(dev) -> dict:
     check(tx < 0.1 * cross, f"corridor dist_slope_tx {tx} >= 0.1 x {cross}")
 
     pooled = pooled_numbers(results)
+    _, lab_trans, lab_rot = EX._pool_scores(results)
+    for kind, lab in (("translation", lab_trans), ("rotation", lab_rot)):
+        check(bool(lab.any()) and not bool(lab.all()),
+              f"the pooled {kind} labels have one class only")
     print("  pooled AUC " + json.dumps(pooled["auc"], sort_keys=True),
           flush=True)
     print("  calibrated thresholds "
@@ -2198,6 +2225,225 @@ def drive_soak(dev) -> dict:
     return {"numbers": nums, "knn_calls": calls}
 
 
+# --------------------------------------------------------------------------
+# Phase 13: the five user scripts, as modules of the port
+# --------------------------------------------------------------------------
+
+# profile_stages at the bench's 400x300 rig, depth cut to 4 frames and 2
+# sweeps (6 fusion events) and one timed call per row.
+PROFILE_ARGV = ["--res", "400x300", "--frames", "4", "--sweeps", "2"]
+PROFILE_REPS = 1
+PROFILE_KNN_ROW = "register 6 iters (map stage)"
+# lidar_ablation over the bench's 8 lanes, cut to 0.3 s (3 sweeps) and one
+# timed call per candidate.
+ABLATION_ARGV = ["--duration", "0.3", "--batch", "8", "--reps", "1"]
+ABLATION_SWEEPS, ABLATION_REPS = 3, 1
+MULTIHOST_EVENTS = 6    # fusion events per sequence (the workload's 48)
+WINDOW_ARGV = ["--duration", "0.3", "--windows", "4"]
+
+
+def narrow_maps(cfg: L.LidarOdomConfig) -> L.LidarOdomConfig:
+    """``cfg`` with small maps and submaps: the same k-NN calls per step
+    (their count does not depend on the sizes), counted on the CPU in a
+    moment. Counting resets the launch counter: count after reading it."""
+    return cfg._replace(
+        corner_map=vm.VoxelMapConfig(capacity=4096, leaf=0.2),
+        surf_map=vm.VoxelMapConfig(capacity=8192, leaf=0.4),
+        submap_corners=512, submap_surfs=1024)
+
+
+@functools.lru_cache(maxsize=1)
+def cpu_sweep() -> L.Sweep:
+    """A full VLP-16 sweep of the town on the CPU, as a drive of one."""
+    from vil_sensor_fusion_tpu_torch.data import raycast as RC
+
+    sweep = RC.raycast(RC.town_world(seed=7, device="cpu"),
+                       torch.tensor([1.0, 0, 0, 0, 0, 0, 1.5]))
+    return L.Sweep(*(f[None] for f in sweep))
+
+
+def step_calls_cpu(cfg: L.LidarOdomConfig) -> int:
+    """k-NN calls of one ``odometry.step`` at ``cfg``, counted on the
+    CPU."""
+    return knn_calls_per_sweep_cpu(narrow_maps(cfg), cpu_sweep(), n=1)
+
+
+def register_calls_cpu(icp_cfg) -> int:
+    """k-NN calls of one ``icp.register`` at ``icp_cfg``, counted on the
+    CPU."""
+    g = torch.Generator().manual_seed(3)
+    pts = lambda n: torch.rand(n, 3, generator=g) * 20.0  # noqa: E731
+    ones, calls = torch.ones, []
+    with recorded_knn_calls(calls):
+        L.icp.register(lie.pose_identity(device="cpu"), pts(64), ones(64),
+                       pts(64), ones(64), pts(256), ones(256), pts(256),
+                       ones(256), icp_cfg)
+    return len(calls)
+
+
+def drive_profile_stages(dev) -> dict:
+    """``profile_stages.run`` at PROFILE_ARGV, every section; the inputs of
+    every k-NN call of the map-stage register row kept."""
+    from vil_sensor_fusion_tpu_torch import profile_stages as PS
+
+    calls = []
+
+    def record_row(fn):
+        def bench(name, f, *a, **kw):
+            with (recorded_knn_calls(calls) if name == PROFILE_KNN_ROW
+                  else contextlib.nullcontext()):
+                return fn(name, f, *a, **kw)
+        return bench
+
+    sync = _sync_of(dev)
+    sync()
+    K.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with wrapped((PS, "bench", record_row)):
+        rows = PS.run(PS.parse_args(PROFILE_ARGV + ["--device", str(dev)]),
+                      reps=PROFILE_REPS)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = K.KERNEL_LAUNCHES
+    cfg = PS.lidar_config()
+    per_call = {"knn corner 1920x4096": 1, "knn surf 3984x8192": 1,
+                PROFILE_KNN_ROW: register_calls_cpu(cfg.icp),
+                "register 8 iters (odom stage)":
+                    register_calls_cpu(cfg.odom_icp),
+                "odometry.step FULL (two_stage)": step_calls_cpu(cfg),
+                "odometry.step FULL (single)":
+                    step_calls_cpu(cfg._replace(two_stage=False))}
+    calls_per_row = 1 + PROFILE_REPS
+    nums = {"wall_s": wall, "rows": len(rows), "launches": launches,
+            "cpu_knn_calls_per_call": per_call,
+            "ms": {k: r["ms"] for k, r in rows.items()}}
+    print("  profile_stages: " + json.dumps(nums), flush=True)
+    check(len(rows) == 21, f"profile_stages ran {len(rows)} rows, want 21")
+    for name, r in rows.items():
+        check(np.isfinite(r["ms"]) and np.isfinite(r["first_call_s"])
+              and r["ms"] > 0, f"profile_stages {name}: time {r}")
+        want = calls_per_row * per_call.get(name, 0)
+        check(r["knn_launches"] == want, f"profile_stages {name}: "
+              f"{r['knn_launches']} k-NN launches, want {want}")
+    check(launches == calls_per_row * sum(per_call.values()),
+          f"profile_stages: {launches} k-NN launches in all")
+    check(len(calls) == calls_per_row * per_call[PROFILE_KNN_ROW],
+          f"profile_stages: {len(calls)} k-NN calls recorded")
+    return {"numbers": nums, "knn_calls": calls}
+
+
+def drive_lidar_ablation(dev) -> dict:
+    """``lidar_ablation.main`` at ABLATION_ARGV: the six candidates over 8
+    lanes; the inputs of every lane k-NN call of the first candidate's
+    first (untimed) call kept."""
+    from vil_sensor_fusion_tpu_torch import lidar_ablation as LA
+
+    runs, calls = [0], []
+    lanes_kernel = K.knn_cuda_lanes
+
+    def record(q, t, m, k=K.K_DEFAULT):
+        if runs[0] == 1:
+            calls.append((q.clone(), t.clone(), m.clone()))
+        return lanes_kernel(q, t, m, k)
+
+    def count_runs(fn):
+        def run(*a, **kw):
+            runs[0] += 1
+            return fn(*a, **kw)
+        return run
+
+    sync = _sync_of(dev)
+    sync()
+    K.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with wrapped((K, "knn_cuda_lanes", lambda fn: record),
+                 (L.odometry, "run_lanes", count_runs)):
+        res = LA.main(ABLATION_ARGV + ["--device", str(dev)])
+    sync()
+    wall = time.perf_counter() - t0
+    launches = K.KERNEL_LAUNCHES
+    per_sweep = {name: step_calls_cpu(cfg)
+                 for name, cfg in LA.CANDIDATES.items()}
+    nums = {"wall_s": wall, "candidates": res, "launches": launches,
+            "cpu_knn_calls_per_sweep": per_sweep}
+    print("  lidar_ablation: " + json.dumps(nums), flush=True)
+    calls_per_candidate = 1 + ABLATION_REPS
+    check(list(res) == list(LA.CANDIDATES) and runs[0] == len(res)
+          * calls_per_candidate, f"lidar_ablation: {runs[0]} lane runs of "
+          f"{list(res)}")
+    for name, r in res.items():
+        check(all(np.isfinite([r["lidar_stage_ms"], r["err_mean_m"],
+                               r["err_max_m"], r["first_call_s"]])),
+              f"lidar_ablation {name}: {r}")
+        check(r["err_max_m"] < 0.5, f"lidar_ablation {name}: error max "
+              f"{r['err_max_m']} m")
+        check(r["knn_launches_per_sweep"] == per_sweep[name],
+              f"lidar_ablation {name}: {r['knn_launches_per_sweep']} k-NN "
+              f"launches per sweep for all lanes, want {per_sweep[name]}")
+    want = calls_per_candidate * ABLATION_SWEEPS * sum(per_sweep.values())
+    check(launches == want, f"lidar_ablation: {launches} k-NN launches, "
+          f"want {want}")
+    first = per_sweep[next(iter(LA.CANDIDATES))]
+    check(len(calls) == ABLATION_SWEEPS * first,
+          f"lidar_ablation: {len(calls)} lane k-NN calls recorded")
+    return {"numbers": nums, "knn_calls": calls}
+
+
+def drive_icp_scaling(dev, per_step: int) -> dict:
+    """``icp_scaling_curve.main(["--sizes", "1"])``: a world of one NCCL
+    rank in a child process (this process's group is gone since phase 9);
+    its k-NN launches as the child counts them, against ``per_step`` (a
+    CPU count of one step's calls) per step."""
+    from vil_sensor_fusion_tpu_torch import icp_scaling_curve as IC
+
+    t0 = time.perf_counter()
+    out = IC.main(["--sizes", "1", "--device", str(dev)])
+    row = out["1"]
+    nums = {"wall_s": time.perf_counter() - t0, "curve": out,
+            "cpu_knn_calls_per_step": per_step}
+    print("  icp_scaling_curve: " + json.dumps(nums), flush=True)
+    check(np.isfinite(row["step_ms"]) and row["step_ms"] > 0,
+          f"icp_scaling_curve step {row['step_ms']} ms")
+    check(row["n_corr"] > 0, f"icp_scaling_curve n_corr {row['n_corr']}")
+    want = (2 + IC.REPS) * per_step
+    check(row["knn_launches"] == want, f"icp_scaling_curve: "
+          f"{row['knn_launches']} k-NN launches, want {want}")
+    return {"numbers": nums, "launches": row["knn_launches"]}
+
+
+def drive_multihost(dev) -> dict:
+    """``multihost_bench.run_cluster(1, 1)`` as a real worker process on
+    the card, cut to MULTIHOST_EVENTS events and one timed pass."""
+    from vil_sensor_fusion_tpu_torch import multihost_bench as MB
+
+    t0 = time.perf_counter()
+    r = MB.run_cluster(1, 1, n_events=MULTIHOST_EVENTS, reps=1, device=dev)
+    nums = {"wall_s": time.perf_counter() - t0, "result": r}
+    print("  multihost_bench: " + json.dumps(nums), flush=True)
+    check(r["device"] == "cuda" and r["processes"] == 1,
+          f"multihost_bench ran {r}")
+    check(r["global_events"] == 1 * r["processes"] * MULTIHOST_EVENTS,
+          f"multihost_bench global_events {r['global_events']}")
+    check(np.isfinite(r["events_per_s"]) and r["events_per_s"] > 0,
+          f"multihost_bench events/s {r['events_per_s']}")
+    return nums
+
+
+def drive_window_sweep(dev) -> dict:
+    """``window_sweep_quick.main`` at WINDOW_ARGV, float64 on the card."""
+    from vil_sensor_fusion_tpu_torch import window_sweep_quick as WS
+
+    t0 = time.perf_counter()
+    r = WS.main(WINDOW_ARGV + ["--device", str(dev)])
+    nums = {"wall_s": time.perf_counter() - t0,
+            "ate_stream_m": r["ate_stream_m"]}
+    print("  window_sweep_quick: " + json.dumps(nums), flush=True)
+    (ate,) = r["ate_stream_m"].values()
+    check(np.isfinite(ate) and ate < 0.05,
+          f"window_sweep_quick stream ATE {ate} m")
+    return nums
+
+
 def main() -> int:
     # Phase 1: the device.
     if not torch.cuda.is_available():
@@ -2323,6 +2569,30 @@ def main() -> int:
           f"{len(soak['knn_calls'])} k-NN calls", flush=True)
     max_err = max(max_err, check_drive_knn(soak.pop("knn_calls")))
     done("soak")
+
+    # Phase 13: the five user scripts, as modules of the port. The two that
+    # start processes run beside the three in-process ones, in threads.
+    print("[scripts] profile_stages, lidar_ablation, icp_scaling_curve, "
+          "multihost_bench, window_sweep_quick on the card", flush=True)
+    from vil_sensor_fusion_tpu_torch import icp_scaling_curve as IC
+    icp_per_step = step_calls_cpu(IC.problem("cpu")[0])
+    with ThreadPoolExecutor(2) as pool:
+        icp_run = pool.submit(drive_icp_scaling, dev, icp_per_step)
+        mh_run = pool.submit(drive_multihost, dev)
+        prof = drive_profile_stages(dev)
+        print(f"[kernel vs plain on the profile] the {PROFILE_KNN_ROW} row's "
+              f"{len(prof['knn_calls'])} k-NN calls", flush=True)
+        max_err = max(max_err, check_drive_knn(prof.pop("knn_calls")))
+        abl = drive_lidar_ablation(dev)
+        print(f"[kernel vs plain on the ablation] the first candidate's "
+              f"first call: {len(abl['knn_calls'])} lane k-NN calls",
+              flush=True)
+        lane_max_err = max(lane_max_err,
+                           check_lane_knn_calls(abl.pop("knn_calls")))
+        drive_window_sweep(dev)
+        icp = icp_run.result()
+        mh_run.result()
+    done("scripts")
     print("[phase seconds] " + json.dumps(phase_s), flush=True)
 
     launches = {"town_image_drive": launches_4}
@@ -2334,12 +2604,15 @@ def main() -> int:
     bn = bench["numbers"]
     launches["bench_single_stream"] = bn["knn_launches_single_stream"]
     launches["soak"] = soak["numbers"]["launches"]
+    launches["profile_stages"] = prof["numbers"]["launches"]
+    launches["icp_scaling_curve"] = icp["launches"]
     print(f"card: {card}")
     print(kernels_line(card, launches, max_err, shapes,
                        exp["knn_calls_per_sweep"],
                        bag["numbers"]["knn_calls_per_sweep"],
                        soak["numbers"]["knn_calls_per_sweep"],
-                       {"bench_lanes": bn["knn_launches_lanes"]},
+                       {"bench_lanes": bn["knn_launches_lanes"],
+                        "lidar_ablation": abl["numbers"]["launches"]},
                        lane_max_err,
                        lane_shapes))
     print(json.dumps({"ok": True, "device": {

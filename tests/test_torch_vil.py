@@ -167,7 +167,12 @@ def test_port_imports_no_jax():
         "assert {'vil_sensor_fusion_tpu_torch.frontends.vio.photometric',"
         " 'vil_sensor_fusion_tpu_torch.graph.batch',"
         " 'vil_sensor_fusion_tpu_torch.soak',"
-        " 'vil_sensor_fusion_tpu_torch.oracle_report'} <= set(names)\n"
+        " 'vil_sensor_fusion_tpu_torch.oracle_report',"
+        " 'vil_sensor_fusion_tpu_torch.profile_stages',"
+        " 'vil_sensor_fusion_tpu_torch.lidar_ablation',"
+        " 'vil_sensor_fusion_tpu_torch.icp_scaling_curve',"
+        " 'vil_sensor_fusion_tpu_torch.multihost_bench',"
+        " 'vil_sensor_fusion_tpu_torch.window_sweep_quick'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'vil_sensor_fusion_tpu'))\n"
         "assert not bad, bad\n")
@@ -188,6 +193,18 @@ def test_every_jax_module_has_a_port_counterpart():
     jax_modules = modules("vil_sensor_fusion_tpu")
     assert len(jax_modules) > 40
     assert jax_modules - modules("vil_sensor_fusion_tpu_torch") == set()
+
+
+def test_every_user_script_has_a_port_module():
+    """Every user script of the JAX round (``scripts/*.py``) has a module
+    of the same stem in the port, run as ``python -m
+    vil_sensor_fusion_tpu_torch.<stem>``."""
+    stems = {f[:-3] for f in os.listdir(os.path.join(REPO, "scripts"))
+             if f.endswith(".py") and f != "__init__.py"}
+    assert len(stems) == 7, stems
+    port = os.path.join(REPO, "vil_sensor_fusion_tpu_torch")
+    assert {s for s in stems
+            if not os.path.isfile(os.path.join(port, s + ".py"))} == set()
 
 
 def _public_names(path: str) -> set:

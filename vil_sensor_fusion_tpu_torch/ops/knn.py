@@ -140,6 +140,13 @@ def _kernel():
     return _KERNEL
 
 
+def build_kernel() -> None:
+    """Build and bind the CUDA kernel now (``nvcc`` at first use, a few
+    seconds) without launching it, so that a timed region after this does
+    not pay for the build."""
+    _kernel()
+
+
 def _tickets(dev: torch.device, stream: int) -> torch.Tensor:
     t = _TICKETS.get((dev.index, stream))
     if t is None:

@@ -317,6 +317,19 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def require_device(device, what: str) -> torch.device:
+    """``device`` as a ``torch.device``; a card that is not there raises
+    (there is no CPU fallback), and a card present prints its name and
+    power limit to stderr."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{what} runs on a CUDA card (--device cuda); "
+                               "none is available")
+        print(f"card: {card_line()}", file=sys.stderr, flush=True)
+    return dev
+
+
 def run_soak(duration=60.0, chunk=10.0, cam_w=800, cam_h=600, speed=4.0,
              landmarks=24, checkpoint_test=False, checkpoint_dir=None,
              verbose=True, dtype=None, vio_use_odom_cov=False,
