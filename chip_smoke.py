@@ -23,7 +23,7 @@ result line:
    for bit to the single-search kernel on it; times per launch of 8 lanes
    (the entry timed there is ``torch.func.vmap(knn)``) with ``torch.bmm``
    + ``torch.topk`` as the library.
-4. The full path at the bench's rig: the 1.0 s ``town`` drive's 20 camera
+4. The full path at the bench's rig: the 0.8 s ``town`` drive's 16 camera
    frames (800×600, fov 100°) and camera-frame sweep points rendered on the
    card (untimed), then the image tracker (pyramids, detection with LiDAR
    depths, KLT tracking) and ``fusion.vil.run_vil`` (VIO → LiDAR odometry
@@ -34,7 +34,7 @@ result line:
    every k-NN call of the cold run (the drive's own masked submaps).
 5. The same ``run_vil`` on the scenario's synthetic feature tracks over a
    0.5 s drive, once, with the same checks.
-6. CPU cross-check: the first 10 sweeps and 20 frames of phase 4 again on
+6. CPU cross-check: the first 8 sweeps and 16 frames of phase 4 again on
    the CPU from the card's images, compared with the card's run.
 7. Degeneracy experiments: the experiment harness (``eval.experiments``:
    ``experiment_config`` → ``experiment_scenario`` → ``run_scenario``, what
@@ -101,11 +101,11 @@ result line:
    the card against the CPU (``graph.batch.solve_batch``: poses within
    1e-9 m, ``n_between`` equal, cost within 1e-9 relative), and
    ``oracle_report.run_window`` (the fixed-lag ``fusion.run``, window 6) on
-   the card over 1.5 s against the oracle of that timeline (the test's
+   the card over 0.8 s against the oracle of that timeline (the test's
    bounds).
 11. Bench lanes: ``cli.main(["bench", "--lanes", "8", "--duration",
-   "0.4", "--reps", "1"])`` on the card: 8 town seeds at the bench's rig
-   (800×600 camera, full sweeps; 4 sweeps and 8 frames, 12 events per
+   "0.3", "--reps", "1"])`` on the card: 8 town seeds at the bench's rig
+   (800×600 camera, full sweeps; 3 sweeps and 6 frames, 9 events per
    lane) through every stage batched over the lanes (``bench.py`` of the
    package: pyramids, candidates, ``track_frames_lanes``,
    ``pipeline.run_lanes``, ``odometry.run_lanes``, ``logdet_gate``,
@@ -151,8 +151,26 @@ result line:
    ``knn_torch`` on every k-NN call of the profile's map-stage register
    row, and against ``knn_torch_lanes`` on every lane call of the first
    candidate's first call.
+14. The thesis's evaluation grid: ``eval.experiments.run_batch`` over
+   ``default_grid`` (tunnel, field; seed 0, as ``cli experiments --seeds
+   1``) at 0.6 s per cell, with what ``cli experiments`` reports computed
+   without its figures (the card's host has no matplotlib): per cell and
+   pooled, the AUC of every score on its typed labels, the calibrated
+   thresholds, the raw-threshold parity. The tunnel is phase 7's cell (the
+   same spec), which phase 7 writes into the experiment cache, so only the
+   field runs; phase 7 also drove its kernel, ATEs and CPU rerun. Per run
+   cell: walls, events/s, k-NN launches, ATEs, keep share, and per voxel
+   map its fill against capacity and the first sweep that evicted a live
+   slot beyond ``keep_radius``. Checks: finite fused poses and fused ATE <
+   1.0 m in every cell; the field's launches equal to the CPU's per-sweep
+   count; the kernel against ``knn_torch`` on every k-NN call of the field
+   cell; the field's first 5 sweeps / 10 frames again on the CPU in
+   float32 from the card's scenario, within phase 7's tolerances with
+   identical NaN / ±inf score masks. ``eval_grid(15.0)`` runs this phase
+   alone with every cell run, and ``bag_replays(5.0)`` phases 8 and 10's
+   replays on a 5 s bag.
 
-After phase 13 a ``[phase seconds]`` line gives each phase's wall. The
+After phase 14 a ``[phase seconds]`` line gives each phase's wall. The
 last two lines are a JSON object describing the kernels (one sweep's
 sums in ms: ``ms`` the wrapper's call time, ``device_ms`` the kernel's
 own; per-shape µs under ``per_shape_us``; launches per driven path; the
@@ -226,11 +244,20 @@ EXPERIMENT_SHAPES = ((1920, 4096), (3984, 8192))
 # translation-degenerate, the arena's rotation-degenerate and one tunnel
 # sweep, so both pooled label sets keep both classes; phase 7 checks
 # that); phase 11's bench lanes from 0.6 s to 0.4 s when phase 12 came.
-EXPERIMENT_DURATION = 1.0   # s per experiment cell: 10 sweeps, 20 frames
+# When phase 14 came (a whole run took 639 s on an H100 host whose CPU
+# reruns were 2.5 times slower than before, and 534 s from git archive
+# after the first cuts): the experiment cells to 0.8 s and then 0.6 s
+# (the corridor's sweeps all translation-degenerate and the arena's all
+# rotation-degenerate keep both pooled label sets two-class; the CPU
+# reruns keep their 5 sweeps), the town drive to 0.8 s with phase 6
+# rerunning its 8 sweeps (phase 9 still takes its first 18 of 24 events),
+# phase 10's fixed-lag replay from 1.5 s to 0.8 s, phase 11's bench lanes
+# from 0.4 s to 0.3 s.
+EXPERIMENT_DURATION = 0.6   # s per experiment cell: 6 sweeps, 12 frames
 CROSS_EXP_SWEEPS = 5        # corridor sweeps (and 10 frames) rerun on the CPU
-DURATION = 1.0          # s of the town drive: 10 sweeps, 20 VIO frames
+DURATION = 0.8          # s of the town drive: 8 sweeps, 16 VIO frames
 SHORT_DURATION = 0.5    # s of the synthetic-track drive: 5 sweeps
-CROSS_SWEEPS = 10       # sweeps (and their 20 frames) rerun on the CPU
+CROSS_SWEEPS = 8        # sweeps (and their 16 frames) rerun on the CPU
 CAM_W, CAM_H = 800, 600  # the bench's camera (bench.py)
 N_SLOTS = 24            # VIO landmark slots: EKF state 15 + 3·24 = 87
 SWEEP_STRIDE = 4        # azimuth decimation: 16·1800/4 = 7,200 points
@@ -1261,18 +1288,24 @@ EXP_CROSS_TOL = {
 SCORE_TOL = 1.0
 
 
-def drive_experiments(dev) -> dict:
+def drive_experiments(dev, cache_dir: str) -> dict:
     """Phase 7: the smoke grid's four cells on the card, the kernel against
     knn_torch on every k-NN call of the corridor cell, the corridor's dist
     slopes, the pooled report, and the CPU rerun of the corridor's head
-    (which also gives the k-NN calls per sweep every cell must launch)."""
+    (which also gives the k-NN calls per sweep every cell must launch).
+    The cells that phase 14's grid shares (the tunnel) are written into
+    ``cache_dir`` as ``run_experiment`` caches them."""
     specs = EX.smoke_grid(seeds=(0,), duration=EXPERIMENT_DURATION)
+    shared = {s.key() for s in EX.default_grid(seeds=(0,),
+                                               duration=GRID_DURATION)}
     results, cells, corridor, calls = [], {}, None, []
     for spec in specs:
         keep = calls if spec.kind == "corridor" else None
         cfg, sc, out, nums = run_cell(spec, dev, keep)
         results.append(out)
         cells[spec.kind] = nums
+        if spec.key() in shared:
+            EX.save_result(out, EX.cache_path(spec, cache_dir))
         if spec.kind == "corridor":
             corridor = (spec, cfg, sc, out)
 
@@ -1313,22 +1346,40 @@ def drive_experiments(dev) -> dict:
     n = CROSS_EXP_SWEEPS
     print(f"[experiment cross-check] corridor's first {n} sweeps on the CPU",
           flush=True)
-    cpu_calls = []
-    K.KERNEL_LAUNCHES = 0
-    with recorded_knn_calls(cpu_calls):
-        cpu_out = EX.run_scenario(spec, cfg,
-                                  scenario_head(sc, n, torch.device("cpu")))
-    check(K.KERNEL_LAUNCHES == 0, "the CPU rerun launched the CUDA kernel")
-    check(len(cpu_calls) % n == 0, f"{len(cpu_calls)} CPU k-NN calls over "
-          f"{n} sweeps")
-    cpu_per_sweep = len(cpu_calls) // n
-    cpu_calls.clear()
-    diff = compare_experiment(out, cpu_out, n)
-    print("  " + json.dumps(diff), flush=True)
+    diff, cpu_per_sweep = rerun_cell_cpu(spec, cfg, sc, out, n)
     for kind, nums in cells.items():
         want = cpu_per_sweep * nums["sweeps"]
         check(nums["launches"] == want, f"{kind}: {nums['launches']} k-NN "
               f"launches, want {cpu_per_sweep} per sweep ({want})")
+    check_cross_experiment(diff)
+    return {"cells": cells, "pooled": pooled, "cross": diff,
+            "knn_calls_per_sweep": per_sweep, "max_err": max_err}
+
+
+def rerun_cell_cpu(spec, cfg, sc, out: dict, n: int) -> tuple[dict, int]:
+    """A cell's first ``n`` sweeps (and their VIO frames) again on the CPU
+    in float32 from the card's own scenario ``sc``; prints and returns
+    ``compare_experiment`` of the card's result ``out`` against it, and the
+    CPU's k-NN calls per sweep."""
+    cpu_calls = []
+    K.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with recorded_knn_calls(cpu_calls):
+        cpu_out = EX.run_scenario(spec, cfg,
+                                  scenario_head(sc, n, torch.device("cpu")))
+    cpu_s = time.perf_counter() - t0
+    check(K.KERNEL_LAUNCHES == 0, "the CPU rerun launched the CUDA kernel")
+    check(len(cpu_calls) % n == 0, f"{len(cpu_calls)} CPU k-NN calls over "
+          f"{n} sweeps")
+    diff = compare_experiment(out, cpu_out, n)
+    diff["cpu_s"] = cpu_s
+    print("  " + json.dumps(diff), flush=True)
+    return diff, len(cpu_calls) // n
+
+
+def check_cross_experiment(diff: dict) -> None:
+    """A CPU rerun against the card within ``EXP_CROSS_TOL`` and
+    ``SCORE_TOL``, with the same NaN / ±inf pattern in every score."""
     check(diff["score_class_mismatches"] == 0,
           "the CPU rerun's scores have another NaN / inf pattern")
     for key, tol in EXP_CROSS_TOL.items():
@@ -1338,8 +1389,6 @@ def drive_experiments(dev) -> dict:
     check(diff["score_rel_err"][worst] <= SCORE_TOL,
           f"experiment cross-check score {worst} "
           f"{diff['score_rel_err'][worst]} > {SCORE_TOL}")
-    return {"cells": cells, "pooled": pooled, "cross": diff,
-            "knn_calls_per_sweep": per_sweep, "max_err": max_err}
 
 
 # --------------------------------------------------------------------------
@@ -1359,16 +1408,16 @@ BAG_CPU_SWEEPS = 2      # sweeps of the CPU run that counts k-NN calls
 BAG_EDGE_CELLS = 0
 
 
-def record_bag(path: Path, dev) -> dict:
-    """Render the 1 s town drive at ``configs/carla_full.yaml``'s rig on
-    ``dev`` (800×600 camera, full VLP-16 sweeps; untimed) and write it as a
-    bz2 raw-sensor bag with ``scenarios.write_scenario_bag`` (what ``cli
-    record`` writes, at the full rig). Returns the bag's bytes and message
-    counts."""
+def record_bag(path: Path, dev, duration: float = BAG_DURATION) -> dict:
+    """Render a ``duration`` s town drive at ``configs/carla_full.yaml``'s
+    rig on ``dev`` (800×600 camera, full VLP-16 sweeps; untimed) and write
+    it as a bz2 raw-sensor bag with ``scenarios.write_scenario_bag`` (what
+    ``cli record`` writes, at the full rig). Returns the bag's bytes and
+    message counts."""
     cfg = C.load(str(FULL_CONFIG)).vil()
     sync = _sync_of(dev)
     t0 = time.perf_counter()
-    sc = scenarios.build("town", duration=BAG_DURATION, vio_cfg=cfg.vio,
+    sc = scenarios.build("town", duration=duration, vio_cfg=cfg.vio,
                          dtype=torch.float32, device=dev)
     images, _, _ = scenarios.render_frontend_inputs(sc, cfg.vio.cam,
                                                     cfg.vio.pose_ic)
@@ -1466,7 +1515,7 @@ def knn_calls_per_sweep_cpu(lidar_cfg: L.LidarOdomConfig, sweeps: L.Sweep,
     return len(calls) // n
 
 
-def replay_bag(dev, tmp: Path) -> dict:
+def replay_bag(dev, tmp: Path, duration: float = BAG_DURATION) -> dict:
     """Phase 8: record the bag into ``tmp`` (where phase 10 replays it
     again), replay it through the CLI on the card, and check the run: the
     CLI's outputs, the k-NN launches against a CPU run's count, the kernel
@@ -1474,7 +1523,7 @@ def replay_bag(dev, tmp: Path) -> dict:
     the final engine state, and the card's ingestion against the CPU's."""
     cfg = C.load(str(FULL_CONFIG)).vil()
     bag, ckpt = tmp / "town_full.bag", tmp / "engine.npz"
-    recorded = record_bag(bag, dev)
+    recorded = record_bag(bag, dev, duration)
     calls = []
     run = run_cli_bag(bag, ckpt, dev, calls)
     res, es, ba = run["res"], run["es"], run["ba"]
@@ -1497,7 +1546,7 @@ def replay_bag(dev, tmp: Path) -> dict:
     print("  " + json.dumps(nums), flush=True)
     out = run["json"]
     fused = res.fused.poses.cpu().numpy()
-    want_T = round(BAG_DURATION * 10)
+    want_T = round(duration * 10)
     check(fused.shape == (events, 7) and T == want_T
           and events == 3 * want_T,
           f"bag replay: {T} sweeps, {events} events, fused {fused.shape}")
@@ -1774,7 +1823,7 @@ PHOTO_CROSS_TOL = {
     "chi2_mismatch": 0, "live_mismatch": 0,
 }
 ORACLE_DURATION = 4.0       # s: tests/test_batch_oracle.py's problem, cut
-FIXED_LAG_DURATION = 1.5    # s of it that the fixed-lag engine replays
+FIXED_LAG_DURATION = 0.8    # s of it that the fixed-lag engine replays
 
 
 def photometric_config(tmp: Path) -> Path:
@@ -1908,7 +1957,7 @@ def replay_bag_photometric(dev, tmp: Path, geo: dict) -> dict:
     with ``vio.use_photometric: true`` (images → pyramids and candidates →
     the direct photometric EKF; LiDAR odometry, gate and fusion as in phase
     8), checked; the kernel against knn_torch on every k-NN call; the
-    photometric VIO's first frames rerun on the CPU; then the oracle."""
+    photometric VIO's first frames rerun on the CPU."""
     config = photometric_config(tmp)
     cfg = C.load(str(config)).vil()
     check(cfg.vio.use_photometric, "the photometric config is not")
@@ -1974,12 +2023,7 @@ def replay_bag_photometric(dev, tmp: Path, geo: dict) -> dict:
         check(cross[key] <= tol, f"photometric cross-check {key} "
               f"{cross[key]} > {tol}")
 
-    print(f"[oracle] graph.batch.solve_batch, f64, {ORACLE_DURATION} s "
-          f"circle: card vs CPU; fixed-lag fusion.run over "
-          f"{FIXED_LAG_DURATION} s against it", flush=True)
-    oracle = drive_oracle(dev)
-    return {"numbers": nums, "cross": cross, "oracle": oracle,
-            "max_err": max_err}
+    return {"numbers": nums, "cross": cross, "max_err": max_err}
 
 
 # --------------------------------------------------------------------------
@@ -1987,7 +2031,7 @@ def replay_bag_photometric(dev, tmp: Path, geo: dict) -> dict:
 # --------------------------------------------------------------------------
 
 BENCH_LANES = 8         # the bench's BATCH (bench.py:64), 8 town seeds
-BENCH_DURATION = 0.4    # s per lane: 4 sweeps and 8 frames, 12 events
+BENCH_DURATION = 0.3    # s per lane: 3 sweeps and 6 frames, 9 events
 BENCH_REPS = 1
 
 
@@ -2444,6 +2488,212 @@ def drive_window_sweep(dev) -> dict:
     return nums
 
 
+# --------------------------------------------------------------------------
+# Phase 14: the thesis's evaluation grid
+# --------------------------------------------------------------------------
+
+# default_grid (tunnel, field) at phase 7's depth, seed 0 (``cli experiments
+# --seeds 1``): its tunnel is phase 7's cell, the same spec and key, which
+# phase 7 leaves in the cache.
+GRID_DURATION = EXPERIMENT_DURATION
+
+
+@contextlib.contextmanager
+def recorded_map_inserts(rows: list):
+    """Append, for every voxel-map insert the path makes, the map's
+    capacity and a device tensor of (live slots beyond ``keep_radius`` of
+    the sensor, which the insert evicts, slots live after it, the sensor's
+    distance from the origin) to ``rows``; no sync."""
+    def wrap(insert):
+        def record(m, pts, mask, center, cfg):
+            new = insert(m, pts, mask, center, cfg)
+            d = torch.linalg.vector_norm(m.points - center[None, :], dim=-1)
+            evicted = ((m.mask > 0) & (d >= cfg.keep_radius)).sum()
+            rows.append((cfg.capacity, torch.stack([
+                evicted.to(m.mask.dtype), new.mask.sum(),
+                torch.linalg.vector_norm(center).to(m.mask.dtype)])))
+            return new
+        return record
+    with wrapped((vm, "insert_auto", wrap)):
+        yield
+
+
+def map_numbers(rows: list, lidar_cfg: L.LidarOdomConfig) -> dict:
+    """Per map (corner, surf) of one run's inserts, one per sweep: its
+    capacity, the slots live after the last and the most after any insert,
+    the live slots evicted in all, and the first sweep that evicted one
+    with the sensor's distance from the origin there."""
+    out = {}
+    for name, mcfg in (("corner", lidar_cfg.corner_map),
+                       ("surf", lidar_cfg.surf_map)):
+        r = [v for cap, v in rows if cap == mcfg.capacity]
+        if not r:
+            continue
+        a = torch.stack(r).double().cpu().numpy()
+        ev = np.flatnonzero(a[:, 0] > 0)
+        out[name] = {
+            "capacity": mcfg.capacity, "keep_radius_m": mcfg.keep_radius,
+            "live_final": int(a[-1, 1]), "live_max": int(a[:, 1].max()),
+            "evicted": int(a[:, 0].sum()),
+            "first_evicting_sweep": int(ev[0]) if ev.size else None,
+            "distance_there_m": float(a[ev[0], 2]) if ev.size else None,
+            "distance_final_m": float(a[-1, 2])}
+    return out
+
+
+def drive_eval_grid(dev, duration: float, cache_dir: str) -> dict:
+    """Phase 14: ``eval.experiments.run_batch`` over ``default_grid``
+    (tunnel, field; seed 0) on the card, what ``cli experiments --seeds 1``
+    runs before it draws its figures, then the numbers of its reports
+    without the figures: per cell and pooled, the AUC of every score on
+    its typed labels, the calibrated thresholds and the raw-threshold
+    parity. A cell already in ``cache_dir`` is loaded, not run. Per run
+    cell: scenario and run walls, ``run_vil``'s stage seconds, events/s,
+    k-NN launches, ATEs, keep share, the voxel maps' fill and first
+    eviction. Every number is printed before the checks: finite fused
+    poses and fused ATE < 1.0 m in every cell; the launches of each run
+    cell equal to the CPU's per-sweep count; the kernel against
+    ``knn_torch`` on every k-NN call of the field cell; its first
+    ``CROSS_EXP_SWEEPS`` sweeps again on the CPU in float32, within phase
+    7's tolerances."""
+    specs = EX.default_grid(seeds=(0,), duration=duration)
+    sync = _sync_of(dev)
+    ran, calls, field = {}, [], None
+
+    def build(fn):
+        def run(spec, cfg, *a, **k):
+            sync()
+            t0 = time.perf_counter()
+            sc = fn(spec, cfg, *a, **k)
+            sync()
+            ran[spec.key()] = {"scenario_s": time.perf_counter() - t0}
+            return sc
+        return run
+
+    def score(fn):
+        def run(spec, cfg, sc):
+            nonlocal field
+            rec = calls if spec.kind == "field" else None
+            rows, n0, timer = [], K.KERNEL_LAUNCHES, U.StageTimer()
+            t0 = time.perf_counter()
+            with timed_run_vil_stages(timer), recorded_map_inserts(rows), (
+                    recorded_knn_calls(rec) if rec is not None
+                    else contextlib.nullcontext()):
+                out = fn(spec, cfg, sc)
+            sync()
+            wall, stages = time.perf_counter() - t0, stage_seconds(timer)
+            stages["scoring+other"] = wall - sum(stages.values())
+            ran[spec.key()].update(
+                wall_s=wall, stage_s=stages,
+                launches=K.KERNEL_LAUNCHES - n0,
+                maps=map_numbers(rows, cfg.lidar))
+            if rec is not None:
+                field = (spec, cfg, sc, out)
+            return out
+        return run
+
+    K.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with wrapped((EX, "experiment_scenario", build),
+                 (EX, "run_scenario", score)):
+        results = EX.run_batch(specs, cache_dir, dev)
+    wall = time.perf_counter() - t0
+    launches = K.KERNEL_LAUNCHES
+
+    cells = {}
+    for spec, out in zip(specs, results):
+        _, lab_t, lab_r = EX._pool_scores([out])
+        nums = {"kind": spec.kind, "cached": spec.key() not in ran,
+                "sweeps": len(out["lidar_times"]),
+                "events": int(out["events"]),
+                "degen_windows": out["degen_windows"],
+                "labeled_sweeps": {"trans": int(lab_t.sum()),
+                                   "rot": int(lab_r.sum())},
+                "ate_fused_m": float(out["ate_fused"]),
+                "ate_vio_m": float(out["ate_vio"]),
+                "ate_lidar_m": float(out["ate_lidar"]),
+                "keep_share": float(out["gate_keep_fraction"]),
+                "median_n_corr": float(np.median(out["n_corr"]))}
+        if spec.key() in ran:
+            r = ran[spec.key()]
+            nums.update(r, events_per_s=nums["events"] / r["wall_s"])
+        nums.update(pooled_numbers([out]))
+        cells[spec.kind] = nums
+        print("  " + json.dumps(nums), flush=True)
+    pooled = pooled_numbers(results)
+    print(f"  grid wall {wall:.3f} s, {launches} k-NN launches", flush=True)
+    print("  pooled " + json.dumps(pooled), flush=True)
+
+    check([r["spec"]["kind"] for r in results]
+          == [s.kind for s in specs], "run_batch: cells out of order")
+    for (key, nums), out in zip(cells.items(), results):
+        check(bool(np.isfinite(out["fused_poses"]).all()),
+              f"{key}: non-finite fused pose")
+        check(nums["ate_fused_m"] < 1.0,
+              f"{key}: fused ATE {nums['ate_fused_m']} m")
+    check(field is not None, "the grid ran no field cell")
+    spec, cfg, sc, out = field
+    print(f"[kernel vs plain on the field cell] its {len(calls)} k-NN calls",
+          flush=True)
+    max_err = check_drive_knn(calls)
+    calls.clear()
+    n = CROSS_EXP_SWEEPS
+    print(f"[grid cross-check] the field cell's first {n} sweeps on the CPU",
+          flush=True)
+    diff, cpu_per_sweep = rerun_cell_cpu(spec, cfg, sc, out, n)
+    for key, nums in cells.items():
+        if not nums["cached"]:
+            want = cpu_per_sweep * nums["sweeps"]
+            check(nums["launches"] == want, f"{key}: {nums['launches']} k-NN "
+                  f"launches, want {cpu_per_sweep} per sweep ({want})")
+    check(launches == sum(c["launches"] for c in cells.values()
+                          if not c["cached"]),
+          f"the grid launched the kernel {launches} times outside its cells")
+    check_cross_experiment(diff)
+    return {"cells": cells, "pooled": pooled, "cross": diff,
+            "launches": launches, "wall_s": wall, "max_err": max_err}
+
+
+def _card():
+    """The first card, with the port's precision set, for a phase run
+    alone; raises without one."""
+    check(torch.cuda.is_available(), "no CUDA device")
+    _precision.require_full_f32()
+    print(f"card: {card_line()}", flush=True)
+    return torch.device("cuda", 0)
+
+
+def eval_grid(duration: float) -> dict:
+    """Phase 14 alone at another depth, every cell run (nothing cached),
+    for a record on the card:
+
+        python3 -c 'import chip_smoke as CS; CS.eval_grid(15.0)'
+    """
+    dev = _card()
+    print(f"[evaluation grid] default_grid, seed 0, {duration} s per cell "
+          f"-> run_batch", flush=True)
+    with tempfile.TemporaryDirectory() as cache:
+        return drive_eval_grid(dev, duration, cache)
+
+
+def bag_replays(duration: float) -> dict:
+    """Phases 8 and 10's bag replays alone on a ``duration`` s bag,
+    geometric then photometric, with their checks:
+
+        python3 -c 'import chip_smoke as CS; CS.bag_replays(5.0)'
+    """
+    dev = _card()
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        print(f"[bag replay] {duration} s town drive at {FULL_CONFIG.name}'s "
+              f"rig -> bz2 bag -> cli run --bag", flush=True)
+        geo = replay_bag(dev, Path(tmp), duration)
+        print("[photometric bag replay] the same bag -> cli run --bag with "
+              "vio.use_photometric: true", flush=True)
+        photo = replay_bag_photometric(dev, Path(tmp), geo)
+    return {"geometric": geo["numbers"], "photometric": photo["numbers"]}
+
+
 def main() -> int:
     # Phase 1: the device.
     if not torch.cuda.is_available():
@@ -2511,11 +2761,13 @@ def main() -> int:
     del full, x, sc
     done("cross_check")
 
-    # Phase 7: the degeneracy-experiment grid.
+    # Phase 7: the degeneracy-experiment grid. Its tunnel cell goes into
+    # the experiment cache that phase 14 reads.
     print(f"[experiments] smoke grid, {EXPERIMENT_DURATION} s per cell: "
           f"experiment_config -> experiment_scenario -> run_scenario",
           flush=True)
-    exp = drive_experiments(dev)
+    cache_dir = tempfile.TemporaryDirectory()
+    exp = drive_experiments(dev, cache_dir.name)
     max_err = max(max_err, exp["max_err"])
     done("experiments")
 
@@ -2547,6 +2799,10 @@ def main() -> int:
     photo = replay_bag_photometric(dev, tmp, bag)
     tmp_dir.cleanup()
     max_err = max(max_err, photo["max_err"])
+    print(f"[oracle] graph.batch.solve_batch, f64, {ORACLE_DURATION} s "
+          f"circle: card vs CPU; fixed-lag fusion.run over "
+          f"{FIXED_LAG_DURATION} s against it", flush=True)
+    drive_oracle(dev)
     done("photometric_and_oracle")
 
     # Phase 11: cli bench, every stage batched over 8 lanes.
@@ -2593,6 +2849,17 @@ def main() -> int:
         icp = icp_run.result()
         mh_run.result()
     done("scripts")
+
+    # Phase 14: the thesis's evaluation grid, default_grid (tunnel, field),
+    # as cli experiments runs it up to its figures; the tunnel from phase
+    # 7's cache.
+    print(f"[evaluation grid] default_grid, seed 0, {GRID_DURATION} s per "
+          f"cell -> run_batch (tunnel from phase 7's cache), the reports' "
+          f"numbers", flush=True)
+    grid = drive_eval_grid(dev, GRID_DURATION, cache_dir.name)
+    cache_dir.cleanup()
+    max_err = max(max_err, grid["max_err"])
+    done("eval_grid")
     print("[phase seconds] " + json.dumps(phase_s), flush=True)
 
     launches = {"town_image_drive": launches_4}
@@ -2606,6 +2873,7 @@ def main() -> int:
     launches["soak"] = soak["numbers"]["launches"]
     launches["profile_stages"] = prof["numbers"]["launches"]
     launches["icp_scaling_curve"] = icp["launches"]
+    launches["eval_grid"] = grid["launches"]
     print(f"card: {card}")
     print(kernels_line(card, launches, max_err, shapes,
                        exp["knn_calls_per_sweep"],

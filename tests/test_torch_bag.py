@@ -379,6 +379,16 @@ def _config():
     return cfg, fe
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs its files side by side, one
+    worker each, and these tests run many small ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def scenario_bag(tmp_path_factory):
     """A 0.5 s town drive built by the port on the CPU (5 sweeps, 10

@@ -34,6 +34,16 @@ FIXED_LAG_DUR = 1.0
 IMU_HZ = 200.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs its files side by side, one
+    worker each, and these tests run many small ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(noise=0.0, seed=0, use_pose_covariance=False, drop=(),
              dur=DUR):
     """``test_batch_oracle.py``'s ``_problem`` over ``dur`` seconds. With

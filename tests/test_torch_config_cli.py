@@ -21,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from vil_sensor_fusion_tpu import cli as JCLI
 from vil_sensor_fusion_tpu import config as JC
@@ -130,6 +131,16 @@ def test_photo_levels_beyond_the_pyramid_refused(tmp_path):
     p.write_text("vio: {photo_levels: 4}\nfrontend: {pyramid_levels: 3}\n")
     with pytest.raises(ValueError, match="photo_levels"):
         TC.load(str(p)).vil()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs its files side by side, one
+    worker each, and these tests run many small ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -1,8 +1,10 @@
 """The degeneracy-experiment slice of the port against the JAX package:
 scenario → ``run_vil`` with ``emit_dists`` → metric scores, gate log-dets
-and dist slopes per sweep, on a 0.5 s motion-distorted corridor drive built
-by JAX and handed over, in float64, with the narrow configuration of
-``test_torch_vil.py`` and ``emit_dists``.
+and dist slopes per sweep, on a 0.5 s motion-distorted drive of each
+degenerate kind (the corridor, and ``default_grid``'s tunnel and field)
+built by JAX and handed over with the port's trajectory of that kind, in
+float64, with the narrow configuration of ``test_torch_vil.py`` and
+``emit_dists``.
 
 The JAX side is the composition the JAX ``experiments._run`` makes of
 public functions (``run_vil``, ``score_series``, ``dist_slopes_6dof``, the
@@ -17,6 +19,7 @@ correspondence across its gate), and every score series has JAX's NaN and
 import dataclasses
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 import torch
@@ -25,6 +28,7 @@ from vil_sensor_fusion_tpu import fusion as JFU
 from vil_sensor_fusion_tpu.data import scenarios as JSC
 from vil_sensor_fusion_tpu.degeneracy import gate as JDG
 from vil_sensor_fusion_tpu.degeneracy import metrics as JM
+from vil_sensor_fusion_tpu.eval import experiments as JEX
 from vil_sensor_fusion_tpu.frontends import lidar as JLi
 from vil_sensor_fusion_tpu.frontends import vio as JV
 from vil_sensor_fusion_tpu.fusion import vil as JVIL
@@ -58,11 +62,22 @@ def _jax_scores(hessian, gate, dists):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-def test_experiment_slice_matches_jax():
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs its files side by side, one
+    worker each, and these tests run many small ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("kind", ["corridor", "tunnel", "field"])
+def test_experiment_slice_matches_jax(kind):
     cfg = _config()
     cfg = cfg._replace(lidar=cfg.lidar._replace(emit_dists=True))
-    spec = TEX.ExperimentSpec(kind="corridor", duration=0.5)
-    sc = JSC.build("corridor", duration=0.5, vio_cfg=cfg.vio, dtype=DT,
+    spec = TEX.ExperimentSpec(kind=kind, duration=0.5)
+    sc = JSC.build(kind, duration=0.5, vio_cfg=cfg.vio, dtype=DT,
                    distort_sweeps=True)
     t0 = jnp.zeros((), DT)
     pose0, vel0 = sc.traj.pose_fn(t0), sc.traj.vel_fn(t0)
@@ -92,8 +107,10 @@ def test_experiment_slice_matches_jax():
         assert_close(slopes[:, i], sj[f"dist_slope_{a}"], rtol=1e-9,
                      atol=1e-9)
 
-    # The port's own run through experiments.run_scenario.
-    tsc = tt(sc)._replace(traj=TSC._corridor_traj())
+    # The port's own run through experiments.run_scenario, on the JAX
+    # scenario with the port's trajectory of the kind.
+    traj = TSC._kind(kind, 0.5, 0, torch.float64, "cpu")[1]
+    tsc = tt(sc)._replace(traj=traj)
     out = TEX.run_scenario(spec, convert.to_torch(cfg, "cpu"), tsc)
     assert out["spec"] == dataclasses.asdict(spec)
     assert out["events"] == 15
@@ -116,7 +133,41 @@ def test_experiment_slice_matches_jax():
     np.testing.assert_allclose(out["ate_lidar"],
                                np.sqrt(np.mean(np.sum(err ** 2, -1))),
                                atol=1e-5)
-    # The corridor starves x: the along-axis slope stays below the
-    # cross-axis ones after the first sweep.
-    st = np.stack([out["scores"][f"dist_slope_{a}"] for a in AXES[:3]], 1)
-    assert (st[1:, 0] < 0.5 * np.maximum(st[1:, 1], st[1:, 2])).all(), st
+    if kind == "corridor":
+        # The corridor starves x: the along-axis slope stays below the
+        # cross-axis ones after the first sweep.
+        st = np.stack([out["scores"][f"dist_slope_{a}"] for a in AXES[:3]],
+                      1)
+        assert (st[1:, 0] < 0.5 * np.maximum(st[1:, 1], st[1:, 2])).all(), st
+
+
+def test_saved_result_is_loaded_not_run(tmp_path, monkeypatch):
+    """A result written by ``save_result`` at ``cache_path`` is what
+    ``run_experiment`` returns, in the port and in JAX (the same spec key
+    and file format), and neither runs the cell again."""
+    spec = TEX.ExperimentSpec(kind="tunnel", duration=0.8)
+    rng = np.random.default_rng(3)
+    out = {"spec": dataclasses.asdict(spec), "events": 24,
+           "ate_fused": 0.25, "degen_windows": [[0.4, 0.4, "trans"]],
+           "lidar_times": np.arange(8) / 10.0,
+           "n_corr": rng.integers(100, 200, 8).astype(np.float32),
+           "scores": {"e_opt": rng.standard_normal(8),
+                      "dist_slope_tx": np.array([np.nan, 1, 2, 3, 4, 5, 6,
+                                                 np.inf])}}
+    TEX.save_result(out, TEX.cache_path(spec, str(tmp_path)))
+    assert spec.key() == JEX.ExperimentSpec(**out["spec"]).key()
+
+    def refuse(*a, **k):
+        raise AssertionError("a cached cell ran again")
+    monkeypatch.setattr(TEX, "_run", refuse)
+    monkeypatch.setattr(JEX, "_run", refuse)
+    for back in (TEX.run_experiment(spec, str(tmp_path), device="cpu"),
+                 JEX.run_experiment(JEX.ExperimentSpec(**out["spec"]),
+                                    str(tmp_path))):
+        assert set(back) == set(out)
+        assert back["spec"] == out["spec"] and int(back["events"]) == 24
+        assert back["degen_windows"] == out["degen_windows"]
+        for k in ("lidar_times", "n_corr"):
+            np.testing.assert_array_equal(back[k], out[k])
+        for k, v in out["scores"].items():
+            np.testing.assert_array_equal(back["scores"][k], v)

@@ -30,6 +30,16 @@ from vil_sensor_fusion_tpu_torch.graph import smoother as TSM
 DT = jnp.float64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs its files side by side, one
+    worker each, and these tests run many small ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(tree):
     return convert.to_torch(tree, "cpu")
 
@@ -176,8 +186,15 @@ def test_smoother_keyframe_between_solve_match_jax(tiny):
     assert TSM.SmootherConfig().damping == JSM.SmootherConfig().damping == 1e-9
 
 
+@pytest.fixture(scope="module")
+def jax_cost():
+    """JAX's ``smoother.cost`` compiled once for the file's cost tests
+    (eager, each of its many small ops is dispatched on its own)."""
+    return jax.jit(JSM.cost, static_argnums=0)
+
+
 @pytest.mark.parametrize("anchor", [False, True], ids=["plain", "anchor"])
-def test_smoother_cost_matches_jax(tiny, anchor):
+def test_smoother_cost_matches_jax(tiny, jax_cost, anchor):
     """``smoother.cost`` (prior + IMU + between + unary terms) at the
     engine's final state, with one unary anchor added in the second case,
     and at a perturbed state."""
@@ -193,11 +210,11 @@ def test_smoother_cost_matches_jax(tiny, anchor):
     moved = s_j._replace(states=s_j.states._replace(
         vels=s_j.states.vels + 0.1))
     for s in (s_j, moved):
-        cj = float(JSM.cost(scfg, s))
+        cj = float(jax_cost(scfg, s))
         ct = TSM.cost(_t(scfg), _t(s))
         assert ct.dtype == torch.float64 and ct.shape == ()
         assert abs(float(ct) - cj) <= 1e-9 * max(abs(cj), 1.0), (ct, cj)
-    assert float(JSM.cost(scfg, moved)) > float(JSM.cost(scfg, s_j))
+    assert float(jax_cost(scfg, moved)) > float(jax_cost(scfg, s_j))
 
 
 def test_non_pd_covariance_gives_nan_not_an_exception():

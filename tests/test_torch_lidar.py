@@ -29,6 +29,16 @@ from vil_sensor_fusion_tpu_torch.frontends.lidar import voxelmap as TV
 DT = jnp.float32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs its files side by side, one
+    worker each, and these tests run many small ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pose(x=0.0, y=0.0, z=1.5, yaw=0.0):
     q = JL.so3_exp_quat(jnp.array([0.0, 0.0, yaw], DT))
     return JL.pose_make(q, jnp.array([x, y, z], DT))
@@ -315,7 +325,8 @@ def test_odometry_emits_dists_like_jax():
         submap_corners=512, submap_surfs=1024, emit_dists=True,
         dists_shifts=7, guess_is_delta=True)
     st = JLi.odometry.init(cfg, dt, pose0=poses[0])
-    _, oj = JLi.odometry.run(cfg, st, sweeps, guesses)
+    _, oj = jax.jit(lambda s, sw, g: JLi.odometry.run(cfg, s, sw, g))(
+        st, sweeps, guesses)
     _, ot = TLi.odometry.run(_t(cfg), _t(st), _t(sweeps), _t(guesses))
     np.testing.assert_allclose(ot.pose.numpy(), _np(oj.pose), atol=1e-8)
     assert tuple(ot.dists.dists.shape) == (3, 6, 7)

@@ -36,6 +36,16 @@ DT = jnp.float64
 ATOL = 1e-8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs its files side by side, one
+    worker each, and these tests run many small ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(tree):
     return convert.to_torch(tree, "cpu")
 

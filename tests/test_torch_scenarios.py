@@ -21,6 +21,16 @@ from vil_sensor_fusion_tpu_torch.data import scenarios as TSC
 DT = jnp.float64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs its files side by side, one
+    worker each, and these tests run many small ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("kind", ["town", "corridor", "arena", "field",
                                   "tunnel"])
 def test_scenario_windows_and_ground_truth_match_jax(kind):

@@ -33,6 +33,16 @@ M = 10
 ATOL = 1e-9
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs its files side by side, one
+    worker each, and these tests run many small ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(tree):
     return convert.to_torch(tree, "cpu")
 

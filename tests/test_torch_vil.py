@@ -44,6 +44,16 @@ DT = jnp.float64
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs its files side by side, one
+    worker each, and these tests run many small ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _config():
     """The bench's operating point at narrow sizes: 12 landmark slots on a
     160×120 camera, maps 4096/8192, submaps 512/1024, smoother window 4."""

@@ -226,7 +226,7 @@ def run_experiment(spec: ExperimentSpec, cache_dir: str,
     """Run (or load from the cache) one experiment; a cached run is never
     executed again, as the reference's numpified-bag pickles."""
     os.makedirs(cache_dir, exist_ok=True)
-    path = os.path.join(cache_dir, spec.key() + ".npz")
+    path = cache_path(spec, cache_dir)
     if os.path.exists(path):
         with np.load(path, allow_pickle=True) as z:
             def un(a):
@@ -236,13 +236,25 @@ def run_experiment(spec: ExperimentSpec, cache_dir: str,
                 return a
             return {k: un(z[k]) for k in z.files}
     out = _run(spec, device)
+    save_result(out, path)
+    return out
+
+
+def cache_path(spec: ExperimentSpec, cache_dir: str) -> str:
+    """Where :func:`run_experiment` keeps the spec's result."""
+    return os.path.join(cache_dir, spec.key() + ".npz")
+
+
+def save_result(out: Mapping, path: str) -> None:
+    """Write a result dict as :func:`run_experiment` caches it, so a run
+    made by other means (``run_scenario`` on a scenario already built) is
+    loaded instead of executed again."""
     flat = dict(out)
     # npz-friendly: store dicts as object scalars.
     flat["spec"] = np.array(out["spec"], dtype=object)
     flat["scores"] = np.array(out["scores"], dtype=object)
     flat["degen_windows"] = np.array(out["degen_windows"], dtype=object)
     np.savez_compressed(path, **flat)
-    return out
 
 
 def run_batch(specs: Sequence[ExperimentSpec], cache_dir: str,
