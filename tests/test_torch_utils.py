@@ -180,9 +180,22 @@ def test_stage_timer_sums():
 
 
 def test_annotate_and_device_trace_on_the_cpu(tmp_path):
+    """``device_trace`` records the program's spans (the port's counterpart
+    of JAX's ``annotate`` is ``span``) and writes them into its trace as a
+    track of their own, on the profiler's clock, without putting them among
+    the profiler's events."""
+    a, b = torch.ones(64, 64), torch.ones(64, 64)
     with TU.device_trace(str(tmp_path), device="cpu") as prof:
-        with TU.annotate("port_stage"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    names = {e.key for e in prof.key_averages()}
-    assert "port_stage" in names
-    assert "port_stage" in (tmp_path / "trace.json").read_text()
+        with TU.span("port_stage"):
+            TU.count("port_items", 2)
+            a @ b
+    assert "port_stage" not in {e.key for e in prof.key_averages()}
+    doc = json.loads((tmp_path / "trace.json").read_text())
+    events = doc["traceEvents"]
+    stage, = [e for e in events if e.get("name") == "port_stage"]
+    mm, = [e for e in events if e.get("name") == "aten::mm"]
+    assert stage["cat"] == "program_span" and stage["args"]["parent"] == -1
+    assert stage["pid"] != mm["pid"]
+    assert stage["ts"] <= mm["ts"] + 1.0           # µs; float rounding
+    assert mm["ts"] + mm["dur"] <= stage["ts"] + stage["dur"] + 1.0
+    assert doc["programCounts"] == {"port_items": 2}

@@ -264,6 +264,11 @@ RENAMED = {
     # Unused in the JAX package; the port's query tiling is the kernel's
     # plan.
     "frontends/lidar/icp.py": {"QUERY_CHUNK": f"{_KNN}:_plan"},
+    # A named region: the port's spans stay out of the profiler.
+    "utils/tracing.py": {
+        "annotate": "vil_sensor_fusion_tpu_torch.utils.tracing:span"},
+    "utils/__init__.py": {
+        "annotate": "vil_sensor_fusion_tpu_torch.utils:span"},
 }
 
 

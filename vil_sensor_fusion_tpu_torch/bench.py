@@ -270,20 +270,22 @@ def lanes_pass(cfg: BenchConfig, x: BenchInputs, s: States,
                timer: U.StageTimer) -> PassOutput:
     """One pass of every stage over all lanes (bench.py:one_pass)."""
     fe = cfg.frontend
-    py = timer.time("frontend_pyr", F.pyramids_batch, fe, x.images)
-    cand = timer.time("frontend_detect", F.candidates_batch, fe, x.images,
-                      x.cam_points, x.cam_point_valid)
-    frames = timer.time("frontend_track", F.track_frames_lanes, fe, py,
-                        *cand, x.imu_windows, cfg.vio.num_landmarks)
-    _, vio = timer.time("vio", V.pipeline.run_lanes, cfg.vio, s.vio, frames)
-    guesses = delta_guesses(vio.pose, x.pose0, x.guess_idx)
-    _, lidar = timer.time("lidar", L.odometry.run_lanes, cfg.lidar, s.lidar,
-                          x.sweeps, guesses)
-    gate = timer.time("gate", DG.logdet_gate, lidar.hessian, cfg.gate,
-                      lidar.n_corr)
-    tl = timeline(x, vio.pose, vio.cov, lidar.pose, lidar.cov, gate.keep)
-    _, fused = timer.time("fusion", E.run_lanes, cfg.fusion, s.engine, tl,
-                          x.imu_times, x.imu_accel, x.imu_gyro)
+    with U.span("bench.lanes_pass"):
+        py = timer.time("frontend_pyr", F.pyramids_batch, fe, x.images)
+        cand = timer.time("frontend_detect", F.candidates_batch, fe,
+                          x.images, x.cam_points, x.cam_point_valid)
+        frames = timer.time("frontend_track", F.track_frames_lanes, fe, py,
+                            *cand, x.imu_windows, cfg.vio.num_landmarks)
+        _, vio = timer.time("vio", V.pipeline.run_lanes, cfg.vio, s.vio,
+                            frames)
+        guesses = delta_guesses(vio.pose, x.pose0, x.guess_idx)
+        _, lidar = timer.time("lidar", L.odometry.run_lanes, cfg.lidar,
+                              s.lidar, x.sweeps, guesses)
+        gate = timer.time("gate", DG.logdet_gate, lidar.hessian, cfg.gate,
+                          lidar.n_corr)
+        tl = timeline(x, vio.pose, vio.cov, lidar.pose, lidar.cov, gate.keep)
+        _, fused = timer.time("fusion", E.run_lanes, cfg.fusion, s.engine,
+                              tl, x.imu_times, x.imu_accel, x.imu_gyro)
     return PassOutput(frames, vio, lidar, gate, fused)
 
 

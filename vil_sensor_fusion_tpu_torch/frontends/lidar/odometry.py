@@ -23,6 +23,7 @@ import torch
 from ... import DEFAULT_DEVICE, _tree
 from ...core import lie
 from ...ops import eig6 as E6
+from ...utils import tracing as TR
 from . import features as feat
 from . import icp as I
 from . import rangeimage as RI
@@ -177,13 +178,14 @@ def step(
     odom_pose = pose_guess
     odom_hessian = torch.zeros((6, 6), dtype=dtype, device=pose_guess.device)
     if cfg.two_stage:
-        res_o = I.register(
-            pose_guess,
-            fs.sharp, fs.sharp_mask, fs.flat, fs.flat_mask,
-            state.prev_corners, state.prev_corner_mask,
-            state.prev_surfs, state.prev_surf_mask,
-            cfg.odom_icp,
-        )
+        with TR.span("icp.register"):
+            res_o = I.register(
+                pose_guess,
+                fs.sharp, fs.sharp_mask, fs.flat, fs.flat_mask,
+                state.prev_corners, state.prev_corner_mask,
+                state.prev_surfs, state.prev_surf_mask,
+                cfg.odom_icp,
+            )
         odom_pose = torch.where(has_map, res_o.pose, pose_guess)
         odom_hessian = res_o.hessian
         pose_init = odom_pose
@@ -198,11 +200,12 @@ def step(
         def register_fn(*a):
             return I.register(*a, cfg.icp)
 
-    res = register_fn(
-        pose_init,
-        q_corners, q_corner_mask, q_surfs, q_surf_mask,
-        sub_c.points, sub_c.mask, sub_s.points, sub_s.mask,
-    )
+    with TR.span("icp.register"):
+        res = register_fn(
+            pose_init,
+            q_corners, q_corner_mask, q_surfs, q_surf_mask,
+            sub_c.points, sub_c.mask, sub_s.points, sub_s.mask,
+        )
     pose = torch.where(has_map, res.pose, pose_guess)
     if not cfg.two_stage:
         odom_pose = pose
@@ -225,10 +228,12 @@ def step(
     # --- Map + prev-sweep pool update ---------------------------------------
     w_corners = _to_world(pose, q_corners)
     w_surfs = _to_world(pose, q_surfs)
-    cm = vm.insert_auto(state.corner_map, w_corners, q_corner_mask,
-                        lie.pose_trans(pose), cfg.corner_map)
-    sm = vm.insert_auto(state.surf_map, w_surfs, q_surf_mask,
-                        lie.pose_trans(pose), cfg.surf_map)
+    with TR.span("voxelmap.insert"):
+        cm = vm.insert_auto(state.corner_map, w_corners, q_corner_mask,
+                            lie.pose_trans(pose), cfg.corner_map)
+    with TR.span("voxelmap.insert"):
+        sm = vm.insert_auto(state.surf_map, w_surfs, q_surf_mask,
+                            lie.pose_trans(pose), cfg.surf_map)
 
     new_state = LidarOdomState(
         corner_map=cm, surf_map=sm, pose=pose,
@@ -255,15 +260,17 @@ def run(
     ``register_fn`` as in :func:`step`."""
     init0 = state.initialized
     outs = []
-    for t in range(pose_guesses.shape[0]):
-        sweep = Sweep(*(x[t] for x in sweeps))
-        state, res = step(cfg, state, sweep, pose_guesses[t],
-                          register_fn=register_fn, compute_cov=False)
-        outs.append(res)
-    res = _tree.tree_map(lambda *xs: torch.stack(xs, dim=0), *outs)
-    T = res.pose.shape[0]
-    has_map = (torch.arange(T, device=init0.device) > 0) | (init0 > 0)
-    cov = _covariance(cfg, res.hessian, res.cost, res.n_corr, has_map)
+    with TR.span("odometry.run"):
+        TR.count("odometry.sweeps", pose_guesses.shape[0])
+        for t in range(pose_guesses.shape[0]):
+            sweep = Sweep(*(x[t] for x in sweeps))
+            state, res = step(cfg, state, sweep, pose_guesses[t],
+                              register_fn=register_fn, compute_cov=False)
+            outs.append(res)
+        res = _tree.tree_map(lambda *xs: torch.stack(xs, dim=0), *outs)
+        T = res.pose.shape[0]
+        has_map = (torch.arange(T, device=init0.device) > 0) | (init0 > 0)
+        cov = _covariance(cfg, res.hessian, res.cost, res.n_corr, has_map)
     return state, res._replace(cov=cov)
 
 

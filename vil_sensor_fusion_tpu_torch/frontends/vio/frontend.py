@@ -23,6 +23,7 @@ import torch
 
 from ... import DEFAULT_DEVICE
 from ...core import lie
+from ...utils import tracing as TR
 from . import camera as C
 from . import tracker as T
 from .pipeline import VioFrameInput
@@ -194,7 +195,8 @@ def frontend_step(
 def pyramids_batch(cfg: FrontendConfig, images: torch.Tensor) -> tuple:
     """Pyramids of all frames: tuple of (T, h_l, w_l); of all lanes' frames
     for (B, T, H, W) images, tuple of (B, T, h_l, w_l)."""
-    return tuple(T.pyramid(images, cfg.pyramid_levels))
+    with TR.span("frontend.pyramids"):
+        return tuple(T.pyramid(images, cfg.pyramid_levels))
 
 
 def candidates_batch(
@@ -207,11 +209,12 @@ def candidates_batch(
     frames: (cand_uv (T,C,2), cand_score (T,C), cand_depth (T,C),
     projs (T,P,3)). Every op maps over leading axes, so (B, T, ·) inputs
     give the same for all lanes' frames at once."""
-    cand_uv, cand_score = T.detect(images, cfg.n_candidates,
-                                   nms_radius=cfg.nms_radius,
-                                   border=cfg.border)
-    projs = project_sweep(cfg, points_cam, point_valid)
-    cand_depth = depth_at(cfg, projs, cand_uv)
+    with TR.span("frontend.candidates"):
+        cand_uv, cand_score = T.detect(images, cfg.n_candidates,
+                                       nms_radius=cfg.nms_radius,
+                                       border=cfg.border)
+        projs = project_sweep(cfg, points_cam, point_valid)
+        cand_depth = depth_at(cfg, projs, cand_uv)
     return cand_uv, cand_score, cand_depth, projs
 
 
@@ -242,14 +245,16 @@ def track_frames(
     if ts0 is None:
         ts0 = init_tracker(cfg, num_slots, dtype, pyrs[0].device)
     ts, outs = ts0, []
-    for t in range(cand_uv.shape[0]):
-        ts, out = _track_and_assign(
-            cfg, ts, tuple(p[t] for p in pyrs), cand_uv[t], cand_score[t],
-            cand_depth[t], projs[t])
-        outs.append(out)
-    obs_uv, obs_valid, obs_depth, new_uv, new_depth, new_enable = (
-        torch.stack(f) for f in zip(*outs))
-    accel, gyro, dts = (x.to(dtype) for x in imu_windows)
+    with TR.span("frontend.track"):
+        TR.count("frontend.frames", cand_uv.shape[0])
+        for t in range(cand_uv.shape[0]):
+            ts, out = _track_and_assign(
+                cfg, ts, tuple(p[t] for p in pyrs), cand_uv[t],
+                cand_score[t], cand_depth[t], projs[t])
+            outs.append(out)
+        obs_uv, obs_valid, obs_depth, new_uv, new_depth, new_enable = (
+            torch.stack(f) for f in zip(*outs))
+        accel, gyro, dts = (x.to(dtype) for x in imu_windows)
     return VioFrameInput(
         accel=accel, gyro=gyro, dts=dts,
         obs_uv=obs_uv, obs_valid=obs_valid, obs_depth=obs_depth,

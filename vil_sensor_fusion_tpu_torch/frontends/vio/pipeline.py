@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils import tracing as TR
 from . import ekf as E
 
 
@@ -73,11 +74,13 @@ def run(
     """Step over every frame on the device the inputs are on; outputs
     stacked (T, ·)."""
     outs = []
-    for t in range(frames.accel.shape[0]):
-        s, out = step(cfg, s, VioFrameInput(*(x[t] for x in frames)),
-                      depth_sigma)
-        outs.append(out)
-    return s, VioOutput(*(torch.stack(f) for f in zip(*outs)))
+    with TR.span("vio.run"):
+        TR.count("vio.frames", frames.accel.shape[0])
+        for t in range(frames.accel.shape[0]):
+            s, out = step(cfg, s, VioFrameInput(*(x[t] for x in frames)),
+                          depth_sigma)
+            outs.append(out)
+        return s, VioOutput(*(torch.stack(f) for f in zip(*outs)))
 
 
 def run_lanes(

@@ -38,6 +38,7 @@ from ..core import preintegration as pre
 from ..graph import smoother as S
 from ..graph.smoother import SmootherConfig, SmootherState
 from ..utils import health as HL
+from ..utils import tracing as TR
 
 
 class SensorSpec(NamedTuple):
@@ -156,40 +157,42 @@ def step(cfg: FusionConfig, es: EngineState, ev, imu_times, imu_accel,
     s = es.smoother
 
     # --- reserveNode: new keyframe with IMU preintegration over the gap ----
-    _, _, bias, t_prev = S.latest(s)
-    pim = pre.preintegrate_window(
-        imu_times, imu_accel, imu_gyro, t_prev, ev.times, bias,
-        cfg.smoother.imu, max_samples=cfg.max_imu_per_gap)
-    s = S.add_keyframe(cfg.smoother, s, ev.times, pim)
-    new_key = s.key0 + (W - 1)
+    with TR.span("engine.preintegrate"):
+        _, _, bias, t_prev = S.latest(s)
+        pim = pre.preintegrate_window(
+            imu_times, imu_accel, imu_gyro, t_prev, ev.times, bias,
+            cfg.smoother.imu, max_samples=cfg.max_imu_per_gap)
+    with TR.span("engine.factors"):
+        s = S.add_keyframe(cfg.smoother, s, ev.times, pim)
+        new_key = s.key0 + (W - 1)
 
-    # --- odometryCallback: relative pose, covariance, gap check ------------
-    prev_pose = es.last_pose[sid]
-    if cfg.ref_pose_delta:
-        delta = lie.pose_ref_delta(prev_pose, ev.odo_pose)
-    else:
-        delta = lie.pose_between(prev_pose, ev.odo_pose)
-    if spec.use_odom_covariance:
-        cov = ev.odo_twist_cov
-    elif spec.use_pose_covariance:
-        cov = ev.odo_cov
-    else:
-        cov = torch.diag(torch.tensor(
-            [spec.covariance_linear] * 3 + [spec.covariance_angular] * 3,
-            dtype=dtype, device=device))
+        # --- odometryCallback: relative pose, covariance, gap check --------
+        prev_pose = es.last_pose[sid]
+        if cfg.ref_pose_delta:
+            delta = lie.pose_ref_delta(prev_pose, ev.odo_pose)
+        else:
+            delta = lie.pose_between(prev_pose, ev.odo_pose)
+        if spec.use_odom_covariance:
+            cov = ev.odo_twist_cov
+        elif spec.use_pose_covariance:
+            cov = ev.odo_cov
+        else:
+            cov = torch.diag(torch.tensor(
+                [spec.covariance_linear] * 3 + [spec.covariance_angular] * 3,
+                dtype=dtype, device=device))
 
-    gap_ok = (ev.times - es.last_time[sid]) < spec.max_time_skip
-    factor_valid = arrived * es.has_last[sid] * gap_ok.to(dtype)
-    i_window = (es.last_key[sid] - s.key0).to(torch.int32)
-    j_window = torch.tensor(W - 1, dtype=torch.int32, device=device)
-    s = S.add_between(cfg.smoother, s, i_window, j_window, delta, cov,
-                      factor_valid)
+        gap_ok = (ev.times - es.last_time[sid]) < spec.max_time_skip
+        factor_valid = arrived * es.has_last[sid] * gap_ok.to(dtype)
+        i_window = (es.last_key[sid] - s.key0).to(torch.int32)
+        j_window = torch.tensor(W - 1, dtype=torch.int32, device=device)
+        s = S.add_between(cfg.smoother, s, i_window, j_window, delta, cov,
+                          factor_valid)
 
-    # --- absolute map anchor (optional per source) -------------------------
-    anchor_valid = torch.tensor(arrived * float(spec.absolute_anchor),
-                                dtype=dtype, device=device)
-    s = S.add_unary(cfg.smoother, s, j_window, ev.odo_pose,
-                    ev.odo_cov * spec.anchor_cov_scale, anchor_valid)
+        # --- absolute map anchor (optional per source) ---------------------
+        anchor_valid = torch.tensor(arrived * float(spec.absolute_anchor),
+                                    dtype=dtype, device=device)
+        s = S.add_unary(cfg.smoother, s, j_window, ev.odo_pose,
+                        ev.odo_cov * spec.anchor_cov_scale, anchor_valid)
 
     # --- optimize_after_odom: a host branch on host-known values -----------
     do_solve = spec.optimize_after_odom and arrived > 0.5
@@ -207,21 +210,23 @@ def step(cfg: FusionConfig, es: EngineState, ev, imu_times, imu_accel,
         )
     else:
         es = es._replace(smoother=s)
-    pose, vel, b, t = S.latest(s)
-    healthy = HL.check_state(vel, b, limits=cfg.health_limits,
-                             extra_tree=pose)
-    if cfg.guard_health:
-        # Elastic recovery with bounded coasting: on rejection keep the
-        # pre-event state, with its time anchor dragged forward so that the
-        # next gap still fits the static preintegration window.
-        n_imu = imu_times.shape[0]
-        imu_dt = (imu_times[-1] - imu_times[0]) / max(n_imu - 1, 1)
-        t_floor = ev.times - 0.8 * cfg.max_imu_per_gap * imu_dt
-        t_keep = torch.maximum(es_in.smoother.times[-1], t_floor)
-        sm_keep = es_in.smoother._replace(
-            times=_set(es_in.smoother.times, -1, t_keep))
-        es = HL.guarded_update(es_in._replace(smoother=sm_keep), es, healthy)
-        pose, vel, b, t = S.latest(es.smoother)
+    with TR.span("engine.guard"):
+        pose, vel, b, t = S.latest(s)
+        healthy = HL.check_state(vel, b, limits=cfg.health_limits,
+                                 extra_tree=pose)
+        if cfg.guard_health:
+            # Elastic recovery with bounded coasting: on rejection keep the
+            # pre-event state, with its time anchor dragged forward so that
+            # the next gap still fits the static preintegration window.
+            n_imu = imu_times.shape[0]
+            imu_dt = (imu_times[-1] - imu_times[0]) / max(n_imu - 1, 1)
+            t_floor = ev.times - 0.8 * cfg.max_imu_per_gap * imu_dt
+            t_keep = torch.maximum(es_in.smoother.times[-1], t_floor)
+            sm_keep = es_in.smoother._replace(
+                times=_set(es_in.smoother.times, -1, t_keep))
+            es = HL.guarded_update(es_in._replace(smoother=sm_keep), es,
+                                   healthy)
+            pose, vel, b, t = S.latest(es.smoother)
     solved = torch.tensor(float(do_solve), dtype=dtype, device=device)
     return es, (t, pose, vel, b, solved, healthy.to(dtype))
 
@@ -231,19 +236,21 @@ def run(cfg: FusionConfig, es: EngineState, timeline: Timeline, imu_times,
     """Process the whole timeline. Reads the timeline's source/keep/valid to
     the host once, then loops over events without further syncs."""
     _precision.require_full_f32()
-    source = np.asarray(timeline.source.cpu())
-    keep = np.asarray(timeline.keep.cpu(), dtype=np.float64)
-    valid = np.asarray(timeline.valid.cpu(), dtype=np.float64)
-    outs = []
-    for e in range(source.shape[0]):
-        ev = Timeline(times=timeline.times[e], source=int(source[e]),
-                      odo_pose=timeline.odo_pose[e],
-                      odo_cov=timeline.odo_cov[e], keep=keep[e],
-                      valid=valid[e],
-                      odo_twist_cov=timeline.odo_twist_cov[e])
-        es, out = step(cfg, es, ev, imu_times, imu_accel, imu_gyro)
-        outs.append(out)
-    t, p, v, b, sv, hh = (torch.stack(f, dim=0) for f in zip(*outs))
+    with TR.span("engine.run"):
+        source = np.asarray(timeline.source.cpu())
+        keep = np.asarray(timeline.keep.cpu(), dtype=np.float64)
+        valid = np.asarray(timeline.valid.cpu(), dtype=np.float64)
+        outs = []
+        for e in range(source.shape[0]):
+            TR.count("engine.steps", 1)
+            ev = Timeline(times=timeline.times[e], source=int(source[e]),
+                          odo_pose=timeline.odo_pose[e],
+                          odo_cov=timeline.odo_cov[e], keep=keep[e],
+                          valid=valid[e],
+                          odo_twist_cov=timeline.odo_twist_cov[e])
+            es, out = step(cfg, es, ev, imu_times, imu_accel, imu_gyro)
+            outs.append(out)
+        t, p, v, b, sv, hh = (torch.stack(f, dim=0) for f in zip(*outs))
     return es, FusedOutput(times=t, poses=p, vels=v, biases=b, solved=sv,
                            healthy=hh)
 
@@ -298,31 +305,33 @@ def _lane_step(cfg: FusionConfig, tables: _SourceTables, solve_any: bool,
     arrived = ev.keep.to(dtype) * ev.valid.to(dtype)
     s = es.smoother
 
-    _, _, bias, t_prev = S.latest(s)
-    pim = pre.preintegrate_window(
-        imu_times, imu_accel, imu_gyro, t_prev, ev.times, bias,
-        cfg.smoother.imu, max_samples=cfg.max_imu_per_gap)
-    s = S.add_keyframe(cfg.smoother, s, ev.times, pim)
-    new_key = s.key0 + (W - 1)
+    with TR.span("engine.preintegrate"):
+        _, _, bias, t_prev = S.latest(s)
+        pim = pre.preintegrate_window(
+            imu_times, imu_accel, imu_gyro, t_prev, ev.times, bias,
+            cfg.smoother.imu, max_samples=cfg.max_imu_per_gap)
+    with TR.span("engine.factors"):
+        s = S.add_keyframe(cfg.smoother, s, ev.times, pim)
+        new_key = s.key0 + (W - 1)
 
-    prev_pose = es.last_pose[sid]
-    if cfg.ref_pose_delta:
-        delta = lie.pose_ref_delta(prev_pose, ev.odo_pose)
-    else:
-        delta = lie.pose_between(prev_pose, ev.odo_pose)
-    cov = torch.where(tables.use_odom_cov[sid], ev.odo_twist_cov,
-                      torch.where(tables.use_pose_cov[sid], ev.odo_cov,
-                                  tables.diag_cov[sid]))
+        prev_pose = es.last_pose[sid]
+        if cfg.ref_pose_delta:
+            delta = lie.pose_ref_delta(prev_pose, ev.odo_pose)
+        else:
+            delta = lie.pose_between(prev_pose, ev.odo_pose)
+        cov = torch.where(tables.use_odom_cov[sid], ev.odo_twist_cov,
+                          torch.where(tables.use_pose_cov[sid], ev.odo_cov,
+                                      tables.diag_cov[sid]))
 
-    gap_ok = (ev.times - es.last_time[sid]) < tables.max_skip[sid]
-    factor_valid = arrived * es.has_last[sid] * gap_ok.to(dtype)
-    i_window = (es.last_key[sid] - s.key0).to(torch.int32)
-    j_window = torch.tensor(W - 1, dtype=torch.int32, device=device)
-    s = S.add_between(cfg.smoother, s, i_window, j_window, delta, cov,
-                      factor_valid)
-    s = S.add_unary(cfg.smoother, s, j_window, ev.odo_pose,
-                    ev.odo_cov * tables.anchor_scale[sid],
-                    arrived * tables.anchor[sid])
+        gap_ok = (ev.times - es.last_time[sid]) < tables.max_skip[sid]
+        factor_valid = arrived * es.has_last[sid] * gap_ok.to(dtype)
+        i_window = (es.last_key[sid] - s.key0).to(torch.int32)
+        j_window = torch.tensor(W - 1, dtype=torch.int32, device=device)
+        s = S.add_between(cfg.smoother, s, i_window, j_window, delta, cov,
+                          factor_valid)
+        s = S.add_unary(cfg.smoother, s, j_window, ev.odo_pose,
+                        ev.odo_cov * tables.anchor_scale[sid],
+                        arrived * tables.anchor[sid])
 
     do_solve = (tables.solve_after[sid] * arrived) > 0.5
     if solve_any:
@@ -338,18 +347,20 @@ def _lane_step(cfg: FusionConfig, tables: _SourceTables, solve_any: bool,
         last_pose=torch.where(hit[:, None], ev.odo_pose, es.last_pose),
         has_last=torch.where(hit, 1.0, es.has_last),
     )
-    pose, vel, b, t = S.latest(s)
-    healthy = HL.check_state(vel, b, limits=cfg.health_limits,
-                             extra_tree=pose)
-    if cfg.guard_health:
-        n_imu = imu_times.shape[0]
-        imu_dt = (imu_times[-1] - imu_times[0]) / max(n_imu - 1, 1)
-        t_floor = ev.times - 0.8 * cfg.max_imu_per_gap * imu_dt
-        t_keep = torch.maximum(es_in.smoother.times[-1], t_floor)
-        sm_keep = es_in.smoother._replace(times=torch.cat(
-            [es_in.smoother.times[:-1], t_keep[None]]))
-        es = HL.guarded_update(es_in._replace(smoother=sm_keep), es, healthy)
-        pose, vel, b, t = S.latest(es.smoother)
+    with TR.span("engine.guard"):
+        pose, vel, b, t = S.latest(s)
+        healthy = HL.check_state(vel, b, limits=cfg.health_limits,
+                                 extra_tree=pose)
+        if cfg.guard_health:
+            n_imu = imu_times.shape[0]
+            imu_dt = (imu_times[-1] - imu_times[0]) / max(n_imu - 1, 1)
+            t_floor = ev.times - 0.8 * cfg.max_imu_per_gap * imu_dt
+            t_keep = torch.maximum(es_in.smoother.times[-1], t_floor)
+            sm_keep = es_in.smoother._replace(times=torch.cat(
+                [es_in.smoother.times[:-1], t_keep[None]]))
+            es = HL.guarded_update(es_in._replace(smoother=sm_keep), es,
+                                   healthy)
+            pose, vel, b, t = S.latest(es.smoother)
     return es, (t, pose, vel, b, do_solve.to(dtype), healthy.to(dtype))
 
 
@@ -364,22 +375,24 @@ def run_lanes(cfg: FusionConfig, es: EngineState, timeline: Timeline,
     lanes; its solve runs when any lane solves there (read from the
     timeline on the host once, as :func:`run` does)."""
     _precision.require_full_f32()
-    poses = es.smoother.states.poses
-    tables = _source_tables(cfg, poses.dtype, poses.device)
-    source = np.asarray(timeline.source.cpu())
-    arrived = (np.asarray(timeline.keep.cpu(), dtype=np.float64)
-               * np.asarray(timeline.valid.cpu(), dtype=np.float64))
-    solve_after = np.array([s.optimize_after_odom for s in cfg.sensors])
-    solve_any = (solve_after[source] & (arrived > 0.5)).any(axis=0)
-    steps = {flag: torch.func.vmap(functools.partial(_lane_step, cfg, tables,
-                                                     flag))
-             for flag in (False, True)}
-    outs = []
-    for e in range(source.shape[1]):
-        ev = Timeline(*(x[:, e] for x in timeline))
-        es, out = steps[bool(solve_any[e])](es, ev, imu_times, imu_accel,
-                                            imu_gyro)
-        outs.append(out)
-    t, p, v, b, sv, hh = (torch.stack(f, dim=1) for f in zip(*outs))
+    with TR.span("engine.run"):
+        poses = es.smoother.states.poses
+        tables = _source_tables(cfg, poses.dtype, poses.device)
+        source = np.asarray(timeline.source.cpu())
+        arrived = (np.asarray(timeline.keep.cpu(), dtype=np.float64)
+                   * np.asarray(timeline.valid.cpu(), dtype=np.float64))
+        solve_after = np.array([s.optimize_after_odom for s in cfg.sensors])
+        solve_any = (solve_after[source] & (arrived > 0.5)).any(axis=0)
+        steps = {flag: torch.func.vmap(functools.partial(_lane_step, cfg,
+                                                         tables, flag))
+                 for flag in (False, True)}
+        outs = []
+        for e in range(source.shape[1]):
+            TR.count("engine.steps", 1)
+            ev = Timeline(*(x[:, e] for x in timeline))
+            es, out = steps[bool(solve_any[e])](es, ev, imu_times,
+                                                imu_accel, imu_gyro)
+            outs.append(out)
+        t, p, v, b, sv, hh = (torch.stack(f, dim=1) for f in zip(*outs))
     return es, FusedOutput(times=t, poses=p, vels=v, biases=b, solved=sv,
                            healthy=hh)

@@ -19,6 +19,7 @@ import torch
 
 from ..core import lie
 from ..core import preintegration as pre
+from ..utils import tracing as TR
 from . import factors as F
 
 STATE_DIM = F.STATE_DIM
@@ -283,10 +284,12 @@ def solve(cfg: SmootherConfig, s: SmootherState) -> SmootherState:
     """cfg.gn_iters Gauss-Newton iterations, relinearizing each time."""
     W = s.states.poses.shape[0]
     x = s.states
-    for _ in range(cfg.gn_iters):
-        H, b = _assemble(cfg, s, x)
-        dx = -_jacobi_solve(H, b, cfg.damping)
-        x = F.retract_window(x, dx.reshape(W, STATE_DIM))
+    with TR.span("smoother.solve"):
+        for _ in range(cfg.gn_iters):
+            with TR.span("smoother.assemble"):
+                H, b = _assemble(cfg, s, x)
+            dx = -_jacobi_solve(H, b, cfg.damping)
+            x = F.retract_window(x, dx.reshape(W, STATE_DIM))
     return s._replace(states=x)
 
 

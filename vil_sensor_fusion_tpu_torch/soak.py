@@ -195,41 +195,44 @@ def estimator_chunk(rig: SoakRig, idx: ChunkIndex, state: dict, py, cu, cs,
     is the dict ``tracker, vio, lidar, engine, vio_ref`` (the VIO pose at
     the previous chunk's last sweep frame); ``t_off`` is the chunk's start
     in the run dtype. Returns the new state and the chunk's outputs."""
-    if rig.photometric:
-        ts1 = state["tracker"]          # carried unchanged
-        vs1, vio_out = PH.run(rig.vio, rig.frontend, state["vio"], py, cu, cs,
-                              cd, prj, imu_w)
-    else:
-        frames, ts1 = F.track_frames(rig.frontend, py, cu, cs, cd, prj,
-                                     imu_w, rig.vio.num_landmarks,
-                                     ts0=state["tracker"])
-        vs1, vio_out = V.run(rig.vio, state["vio"], frames)
-    vio_sel = vio_out.pose[idx.guess_idx]
-    prev_sel = torch.cat([state["vio_ref"][None], vio_sel[:-1]], dim=0)
-    guesses = lie.pose_between(prev_sel, vio_sel)
-    ls1, lidar_out = L.odometry.run(rig.lidar, state["lidar"], sweeps,
-                                    guesses)
-    gres = DG.logdet_gate(lidar_out.hessian, rig.gate, lidar_out.n_corr)
-    dtype, device = vio_out.pose.dtype, vio_out.pose.device
-    Tv, E_ = vio_out.pose.shape[0], idx.order.shape[0]
-    # The registration covariance over the sweep period squared: the
-    # LiDAR's twist covariance (run_vil's stage 4).
-    lidar_twist = lidar_out.cov / torch.as_tensor((1.0 / LIDAR_HZ) ** 2,
-                                                  dtype=dtype, device=device)
+    with U.span("soak.estimator_chunk"):
+        if rig.photometric:
+            ts1 = state["tracker"]          # carried unchanged
+            vs1, vio_out = PH.run(rig.vio, rig.frontend, state["vio"], py,
+                                  cu, cs, cd, prj, imu_w)
+        else:
+            frames, ts1 = F.track_frames(rig.frontend, py, cu, cs, cd, prj,
+                                         imu_w, rig.vio.num_landmarks,
+                                         ts0=state["tracker"])
+            vs1, vio_out = V.run(rig.vio, state["vio"], frames)
+        vio_sel = vio_out.pose[idx.guess_idx]
+        prev_sel = torch.cat([state["vio_ref"][None], vio_sel[:-1]], dim=0)
+        guesses = lie.pose_between(prev_sel, vio_sel)
+        ls1, lidar_out = L.odometry.run(rig.lidar, state["lidar"], sweeps,
+                                        guesses)
+        gres = DG.logdet_gate(lidar_out.hessian, rig.gate, lidar_out.n_corr)
+        dtype, device = vio_out.pose.dtype, vio_out.pose.device
+        Tv, E_ = vio_out.pose.shape[0], idx.order.shape[0]
+        # The registration covariance over the sweep period squared: the
+        # LiDAR's twist covariance (run_vil's stage 4).
+        lidar_twist = lidar_out.cov / torch.as_tensor(
+            (1.0 / LIDAR_HZ) ** 2, dtype=dtype, device=device)
 
-    def merged(a, b):
-        return torch.cat([a, b], dim=0)[idx.order]
+        def merged(a, b):
+            return torch.cat([a, b], dim=0)[idx.order]
 
-    tl = E.Timeline(
-        times=t_off + idx.rel_sorted, source=idx.src,
-        odo_pose=merged(vio_out.pose, lidar_out.pose),
-        odo_cov=merged(vio_out.cov, lidar_out.cov),
-        keep=merged(torch.ones(Tv, dtype=dtype, device=device), gres.keep),
-        valid=torch.ones(E_, dtype=dtype, device=device),
-        odo_twist_cov=merged(vio_out.twist_cov, lidar_twist))
-    es1, fused = E.run(rig.fusion, state["engine"], tl, imu_t, imu_a, imu_g)
-    new_state = dict(tracker=ts1, vio=vs1, lidar=ls1, engine=es1,
-                     vio_ref=vio_sel[-1])
+        tl = E.Timeline(
+            times=t_off + idx.rel_sorted, source=idx.src,
+            odo_pose=merged(vio_out.pose, lidar_out.pose),
+            odo_cov=merged(vio_out.cov, lidar_out.cov),
+            keep=merged(torch.ones(Tv, dtype=dtype, device=device),
+                        gres.keep),
+            valid=torch.ones(E_, dtype=dtype, device=device),
+            odo_twist_cov=merged(vio_out.twist_cov, lidar_twist))
+        es1, fused = E.run(rig.fusion, state["engine"], tl, imu_t, imu_a,
+                           imu_g)
+        new_state = dict(tracker=ts1, vio=vs1, lidar=ls1, engine=es1,
+                         vio_ref=vio_sel[-1])
     return new_state, ChunkOutput(vio_out, lidar_out, gres, fused)
 
 
