@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._consts import const
 from . import lie
 
 
@@ -135,6 +136,11 @@ def preintegrate(
     )
 
 
+def gravity_vec(params: ImuParams, dtype, device) -> torch.Tensor:
+    """The world gravity vector (0, 0, -g), a shared device constant."""
+    return const((0.0, 0.0, -params.gravity), dtype, device)
+
+
 def predict(
     pim: PreintegratedImu,
     pose_i: torch.Tensor,
@@ -145,8 +151,7 @@ def predict(
     """NavState prediction (GraphManager.cpp:148-152): first-order bias
     correction around ``pim.bias_hat``, then composition with gravity.
     Returns (pose_j, vel_j)."""
-    dtype, device = pim.delta_v.dtype, pim.delta_v.device
-    g = torch.tensor([0.0, 0.0, -params.gravity], dtype=dtype, device=device)
+    g = gravity_vec(params, pim.delta_v.dtype, pim.delta_v.device)
     db = bias - pim.bias_hat
     dba, dbg = db[:3], db[3:6]
 
@@ -197,18 +202,20 @@ def extract_window(
 
     n_in = torch.sum(in_window)
     has_in = n_in > 0
-    last_idx = torch.clamp(i0 + n_in - 1, 0, M - 1)
-    before = torch.clamp(i0 - 1, 0, M - 1)
-    last_t = torch.where(has_in, times[last_idx], start)
-    last_a = torch.where(has_in, accel[last_idx], accel[before])
-    last_g = torch.where(has_in, gyro[last_idx], gyro[before])
-    nxt = torch.clamp(i0 + n_in, 0, M - 1)
+    # (1,)-shaped indices, each row taken with [0]: a 0-d index tensor is
+    # read on the host, a sync that a CUDA graph cannot capture.
+    last_idx = torch.clamp(i0 + n_in - 1, 0, M - 1).reshape(1)
+    before = torch.clamp(i0 - 1, 0, M - 1).reshape(1)
+    last_t = torch.where(has_in, times[last_idx][0], start)
+    last_a = torch.where(has_in, accel[last_idx][0], accel[before][0])
+    last_g = torch.where(has_in, gyro[last_idx][0], gyro[before][0])
+    nxt = torch.clamp(i0 + n_in, 0, M - 1).reshape(1)
     has_next = (i0 + n_in) < M
-    t_next = times[nxt]
+    t_next = times[nxt][0]
     denom = torch.clamp(t_next - last_t, min=1e-12)
     alpha = torch.clamp((end - last_t) / denom, 0.0, 1.0)
-    a_interp = alpha * accel[nxt] + (1.0 - alpha) * last_a
-    g_interp = alpha * gyro[nxt] + (1.0 - alpha) * last_g
+    a_interp = alpha * accel[nxt][0] + (1.0 - alpha) * last_a
+    g_interp = alpha * gyro[nxt][0] + (1.0 - alpha) * last_g
     dt_final = torch.where(has_next, end - last_t, 0.0).to(dtype)
 
     accel_w = torch.cat([a_k, a_interp[None]], dim=0)

@@ -22,10 +22,17 @@ selects, and the solve runs whenever any lane of the event solves, kept
 per lane by a select (never by a 0/1 blend: a lane that did not solve
 may hold NaN in the discarded branch). ``torch.func.vmap`` maps that
 branch-free step over the lane axis.
+
+CUDA graphs: on a card, ``run`` and ``run_lanes`` capture that branch-free
+step once per solve flag (without ``vmap`` for ``run``: one lane computes
+what :func:`step` does) and replay it per event, so an event costs a few
+host ops instead of thousands; the values are the eager step's, bit for
+bit. CPU calls and calls under a functorch transform take the eager step.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple, Sequence
 
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import _precision, _tree
+from .._consts import const
 from ..core import lie
 from ..core import preintegration as pre
 from ..graph import smoother as S
@@ -177,20 +185,18 @@ def step(cfg: FusionConfig, es: EngineState, ev, imu_times, imu_accel,
         elif spec.use_pose_covariance:
             cov = ev.odo_cov
         else:
-            cov = torch.diag(torch.tensor(
-                [spec.covariance_linear] * 3 + [spec.covariance_angular] * 3,
-                dtype=dtype, device=device))
+            cov = _diag_cov(spec, dtype, device)
 
         gap_ok = (ev.times - es.last_time[sid]) < spec.max_time_skip
         factor_valid = arrived * es.has_last[sid] * gap_ok.to(dtype)
         i_window = (es.last_key[sid] - s.key0).to(torch.int32)
-        j_window = torch.tensor(W - 1, dtype=torch.int32, device=device)
+        j_window = torch.full((), W - 1, dtype=torch.int32, device=device)
         s = S.add_between(cfg.smoother, s, i_window, j_window, delta, cov,
                           factor_valid)
 
         # --- absolute map anchor (optional per source) ---------------------
-        anchor_valid = torch.tensor(arrived * float(spec.absolute_anchor),
-                                    dtype=dtype, device=device)
+        anchor_valid = torch.full((), arrived * float(spec.absolute_anchor),
+                                  dtype=dtype, device=device)
         s = S.add_unary(cfg.smoother, s, j_window, ev.odo_pose,
                         ev.odo_cov * spec.anchor_cov_scale, anchor_valid)
 
@@ -227,19 +233,33 @@ def step(cfg: FusionConfig, es: EngineState, ev, imu_times, imu_accel,
             es = HL.guarded_update(es_in._replace(smoother=sm_keep), es,
                                    healthy)
             pose, vel, b, t = S.latest(es.smoother)
-    solved = torch.tensor(float(do_solve), dtype=dtype, device=device)
+    solved = torch.full((), float(do_solve), dtype=dtype, device=device)
     return es, (t, pose, vel, b, solved, healthy.to(dtype))
+
+
+def _solves(cfg: FusionConfig, source: np.ndarray,
+            arrived: np.ndarray) -> np.ndarray:
+    """Whether each event solves: its source optimises after it and it
+    arrived (the ``optimize_after_odom`` cadence, on host values)."""
+    solve_after = np.array([s.optimize_after_odom for s in cfg.sensors])
+    return solve_after[source] & (arrived > 0.5)
 
 
 def run(cfg: FusionConfig, es: EngineState, timeline: Timeline, imu_times,
         imu_accel, imu_gyro) -> tuple[EngineState, FusedOutput]:
     """Process the whole timeline. Reads the timeline's source/keep/valid to
-    the host once, then loops over events without further syncs."""
+    the host once, then loops over events without further syncs. On a card
+    each event replays a captured CUDA graph of the step (see
+    :func:`_graph_device` for when)."""
     _precision.require_full_f32()
+    imu = (imu_times, imu_accel, imu_gyro)
     with TR.span("engine.run"):
         source = np.asarray(timeline.source.cpu())
         keep = np.asarray(timeline.keep.cpu(), dtype=np.float64)
         valid = np.asarray(timeline.valid.cpu(), dtype=np.float64)
+        if _graph_device(es, timeline, imu) is not None:
+            return _run_graphs(cfg, es, timeline, imu,
+                               _solves(cfg, source, keep * valid), lanes=False)
         outs = []
         for e in range(source.shape[0]):
             TR.count("engine.steps", 1)
@@ -248,7 +268,7 @@ def run(cfg: FusionConfig, es: EngineState, timeline: Timeline, imu_times,
                           odo_cov=timeline.odo_cov[e], keep=keep[e],
                           valid=valid[e],
                           odo_twist_cov=timeline.odo_twist_cov[e])
-            es, out = step(cfg, es, ev, imu_times, imu_accel, imu_gyro)
+            es, out = step(cfg, es, ev, *imu)
             outs.append(out)
         t, p, v, b, sv, hh = (torch.stack(f, dim=0) for f in zip(*outs))
     return es, FusedOutput(times=t, poses=p, vels=v, biases=b, solved=sv,
@@ -272,6 +292,12 @@ class _SourceTables(NamedTuple):
     anchor_scale: torch.Tensor   # (S,)
 
 
+def _diag_cov(spec: SensorSpec, dtype, device) -> torch.Tensor:
+    """A source's constant between-factor noise (6, 6)."""
+    return torch.diag(const((spec.covariance_linear,) * 3
+                            + (spec.covariance_angular,) * 3, dtype, device))
+
+
 def _source_tables(cfg: FusionConfig, dtype, device) -> _SourceTables:
     sp = cfg.sensors
 
@@ -281,9 +307,7 @@ def _source_tables(cfg: FusionConfig, dtype, device) -> _SourceTables:
     return _SourceTables(
         use_odom_cov=col([s.use_odom_covariance for s in sp], torch.bool),
         use_pose_cov=col([s.use_pose_covariance for s in sp], torch.bool),
-        diag_cov=torch.stack([torch.diag(col(
-            [s.covariance_linear] * 3 + [s.covariance_angular] * 3))
-            for s in sp]),
+        diag_cov=torch.stack([_diag_cov(s, dtype, device) for s in sp]),
         solve_after=col([float(s.optimize_after_odom) for s in sp]),
         max_skip=col([s.max_time_skip for s in sp]),
         anchor=col([float(s.absolute_anchor) for s in sp]),
@@ -295,13 +319,16 @@ def _lane_step(cfg: FusionConfig, tables: _SourceTables, solve_any: bool,
                es: EngineState, ev: Timeline, imu_times, imu_accel,
                imu_gyro) -> tuple[EngineState, tuple]:
     """One event of one lane with no host branch on the lane's values (the
-    JAX step's device form), for ``torch.func.vmap`` over lanes.
-    ``solve_any`` says whether any lane solves at this event."""
+    JAX step's device form), for ``torch.func.vmap`` over lanes and for a
+    CUDA graph. ``solve_any`` says whether any lane solves at this event.
+    With one lane it computes what :func:`step` does."""
     poses = es.smoother.states.poses
     dtype, device = poses.dtype, poses.device
     es_in = es
     W = cfg.smoother.window
-    sid = ev.source.long()
+    # A (1,)-shaped index, each row taken with [0]: a 0-d index tensor is
+    # read on the host, a sync that a CUDA graph cannot capture.
+    sid = ev.source.long().reshape(1)
     arrived = ev.keep.to(dtype) * ev.valid.to(dtype)
     s = es.smoother
 
@@ -314,26 +341,26 @@ def _lane_step(cfg: FusionConfig, tables: _SourceTables, solve_any: bool,
         s = S.add_keyframe(cfg.smoother, s, ev.times, pim)
         new_key = s.key0 + (W - 1)
 
-        prev_pose = es.last_pose[sid]
+        prev_pose = es.last_pose[sid][0]
         if cfg.ref_pose_delta:
             delta = lie.pose_ref_delta(prev_pose, ev.odo_pose)
         else:
             delta = lie.pose_between(prev_pose, ev.odo_pose)
-        cov = torch.where(tables.use_odom_cov[sid], ev.odo_twist_cov,
-                          torch.where(tables.use_pose_cov[sid], ev.odo_cov,
-                                      tables.diag_cov[sid]))
+        cov = torch.where(tables.use_odom_cov[sid][0], ev.odo_twist_cov,
+                          torch.where(tables.use_pose_cov[sid][0], ev.odo_cov,
+                                      tables.diag_cov[sid][0]))
 
-        gap_ok = (ev.times - es.last_time[sid]) < tables.max_skip[sid]
-        factor_valid = arrived * es.has_last[sid] * gap_ok.to(dtype)
-        i_window = (es.last_key[sid] - s.key0).to(torch.int32)
-        j_window = torch.tensor(W - 1, dtype=torch.int32, device=device)
+        gap_ok = (ev.times - es.last_time[sid][0]) < tables.max_skip[sid][0]
+        factor_valid = arrived * es.has_last[sid][0] * gap_ok.to(dtype)
+        i_window = (es.last_key[sid][0] - s.key0).to(torch.int32)
+        j_window = torch.full((), W - 1, dtype=torch.int32, device=device)
         s = S.add_between(cfg.smoother, s, i_window, j_window, delta, cov,
                           factor_valid)
         s = S.add_unary(cfg.smoother, s, j_window, ev.odo_pose,
-                        ev.odo_cov * tables.anchor_scale[sid],
-                        arrived * tables.anchor[sid])
+                        ev.odo_cov * tables.anchor_scale[sid][0],
+                        arrived * tables.anchor[sid][0])
 
-    do_solve = (tables.solve_after[sid] * arrived) > 0.5
+    do_solve = (tables.solve_after[sid][0] * arrived) > 0.5
     if solve_any:
         s = _tree.tree_map(lambda a, b: torch.where(do_solve, a, b),
                            S.solve(cfg.smoother, s), s)
@@ -372,17 +399,20 @@ def run_lanes(cfg: FusionConfig, es: EngineState, timeline: Timeline,
     what ``jax.vmap(lambda s, tl, t, a, g: run(cfg, s, tl, t, a, g))``
     computes. Lanes may differ in every value, the sources included, but
     share the event count E. Each event issues one set of ops for all
-    lanes; its solve runs when any lane solves there (read from the
-    timeline on the host once, as :func:`run` does)."""
+    lanes (on a card, one replay of a captured CUDA graph); its solve runs
+    when any lane solves there (read from the timeline on the host once,
+    as :func:`run` does)."""
     _precision.require_full_f32()
+    imu = (imu_times, imu_accel, imu_gyro)
     with TR.span("engine.run"):
         poses = es.smoother.states.poses
-        tables = _source_tables(cfg, poses.dtype, poses.device)
         source = np.asarray(timeline.source.cpu())
         arrived = (np.asarray(timeline.keep.cpu(), dtype=np.float64)
                    * np.asarray(timeline.valid.cpu(), dtype=np.float64))
-        solve_after = np.array([s.optimize_after_odom for s in cfg.sensors])
-        solve_any = (solve_after[source] & (arrived > 0.5)).any(axis=0)
+        solve_any = _solves(cfg, source, arrived).any(axis=0)
+        if _graph_device(es, timeline, imu) is not None:
+            return _run_graphs(cfg, es, timeline, imu, solve_any, lanes=True)
+        tables = _source_tables(cfg, poses.dtype, poses.device)
         steps = {flag: torch.func.vmap(functools.partial(_lane_step, cfg,
                                                          tables, flag))
                  for flag in (False, True)}
@@ -390,9 +420,174 @@ def run_lanes(cfg: FusionConfig, es: EngineState, timeline: Timeline,
         for e in range(source.shape[1]):
             TR.count("engine.steps", 1)
             ev = Timeline(*(x[:, e] for x in timeline))
-            es, out = steps[bool(solve_any[e])](es, ev, imu_times,
-                                                imu_accel, imu_gyro)
+            es, out = steps[bool(solve_any[e])](es, ev, *imu)
             outs.append(out)
         t, p, v, b, sv, hh = (torch.stack(f, dim=1) for f in zip(*outs))
     return es, FusedOutput(times=t, poses=p, vels=v, biases=b, solved=sv,
                            healthy=hh)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: each event step captured once per key, then replayed
+# ---------------------------------------------------------------------------
+
+def _plain_call(leaves: list) -> bool:
+    """No functorch transform (a caller's ``vmap``, ``grad`` or ``jvp``)
+    wraps the call or its inputs, no capture is under way on the current
+    stream, and no input records autograd. Asks the current CUDA device."""
+    F = torch._C._functorch
+    return (F.maybe_current_level() is None
+            and not any(F.is_functorch_wrapped_tensor(x) for x in leaves)
+            and not (torch.is_grad_enabled()
+                     and any(x.requires_grad for x in leaves))
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _graph_device(*trees) -> torch.device | None:
+    """The card on which a call replays captured steps, or ``None`` for the
+    eager step: every input is a tensor on one CUDA device and the call is
+    plain (:func:`_plain_call`)."""
+    leaves = _tree.tree_leaves(trees)
+    if not leaves or not all(isinstance(x, torch.Tensor) for x in leaves):
+        return None
+    dev = leaves[0].device
+    if dev.type != "cuda" or any(x.device != dev for x in leaves):
+        return None
+    with torch.cuda.device(dev):
+        return dev if _plain_call(leaves) else None
+
+
+@functools.cache
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    return torch.cuda.Stream(dev)
+
+
+class _StepGraphs:
+    """The captured event steps of one key (:func:`_step_graphs`): static
+    buffers for the state, the event row, the IMU streams and the six
+    per-event outputs, and one CUDA graph per solve flag of
+    :func:`_lane_step` (``vmap``-ped over lanes with ``lanes``) from the
+    buffers back into them. The graphs share one memory pool and keep
+    every value they carry in the buffers, so they replay in any order on
+    the stream that launches them."""
+
+    def __init__(self, cfg: FusionConfig, es: EngineState, row: Timeline,
+                 imu: tuple, lanes: bool):
+        def buffer(x):
+            return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+        self.cfg, self.lanes = cfg, lanes
+        self.es = _tree.tree_map(buffer, es)
+        self.row = [buffer(x) for x in row]
+        self.imu = [buffer(x) for x in imu]
+        poses = self.es.smoother.states.poses
+        lead = poses.shape[:-2]                 # (B,) with lanes, else ()
+
+        def out(*shape, dtype=poses.dtype):
+            return torch.empty(lead + shape, dtype=dtype, device=poses.device)
+
+        # (t, pose, vel, bias, solved, healthy)
+        self.out = [out(dtype=self.es.smoother.times.dtype), out(7), out(3),
+                    out(6), out(), out()]
+        self.tables = _source_tables(cfg, poses.dtype, poses.device)
+        self.graphs: dict = {}
+        self.pool = None
+
+    def load(self, es: EngineState, imu: tuple) -> None:
+        torch._foreach_copy_(_tree.tree_leaves(self.es) + self.imu,
+                             _tree.tree_leaves(es) + list(imu))
+
+    def state(self) -> EngineState:
+        return _tree.tree_map(torch.clone, self.es)
+
+    def _advance(self, solve: bool):
+        fn = functools.partial(_lane_step, self.cfg, self.tables, solve)
+        if self.lanes:
+            fn = torch.func.vmap(fn)
+        return fn(self.es, Timeline(*self.row), *self.imu)
+
+    def _body(self, solve: bool) -> None:
+        """One event step from the buffers into them: what a replay does."""
+        es, out = self._advance(solve)
+        dst, src = _tree.tree_leaves(self.es), _tree.tree_leaves(es)
+        for d, x in zip(dst + self.out, src + list(out)):
+            if d.shape != x.shape or d.dtype != x.dtype:
+                raise RuntimeError(
+                    f"engine step graph: a {d.dtype} {tuple(d.shape)} "
+                    f"buffer would take a {x.dtype} {tuple(x.shape)} value")
+        # Every leaf the step returns is a new tensor (its last ops are
+        # selects), so no copy below reads a buffer another has written.
+        torch._foreach_copy_(self.out, list(out))
+        torch._foreach_copy_(dst, src)
+
+    def _capture(self, solve: bool) -> torch.cuda.CUDAGraph:
+        """Capture :meth:`_body` after one eager step on the capture
+        stream, which makes the lazy constants and that stream's cuBLAS and
+        cuSOLVER handles and workspaces."""
+        dev = self.out[0].device
+        stream = _capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self._advance(solve)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            self._body(solve)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        return graph
+
+    def step(self, solve: bool) -> None:
+        graph = self.graphs.get(solve)
+        if graph is None:
+            TR.count("engine.graph_captures", 1)
+            graph = self.graphs[solve] = self._capture(solve)
+        graph.replay()
+        TR.count("engine.graph_replays", 1)
+
+
+# Keys kept captured in one process: the experiment grid and the window
+# sweep run several configurations.
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_GRAPH_KEYS = 8
+
+
+def _step_graphs(cfg: FusionConfig, es: EngineState, row: Timeline,
+                 imu: tuple, lanes: bool) -> _StepGraphs:
+    """The :class:`_StepGraphs` of (config, lanes, device, every input's
+    shape and dtype), least recently used dropped past ``_GRAPH_KEYS``."""
+    leaves = _tree.tree_leaves((es, row, imu))
+    key = (cfg, lanes, leaves[0].device) + tuple(
+        (tuple(x.shape), x.dtype) for x in leaves)
+    graphs = _GRAPHS.pop(key, None)
+    if graphs is None:
+        graphs = _StepGraphs(cfg, es, row, imu, lanes)
+    _GRAPHS[key] = graphs
+    if len(_GRAPHS) > _GRAPH_KEYS:
+        _GRAPHS.popitem(last=False)
+    return graphs
+
+
+def _run_graphs(cfg: FusionConfig, es: EngineState, timeline: Timeline,
+                imu: tuple, solves: np.ndarray,
+                lanes: bool) -> tuple[EngineState, FusedOutput]:
+    """:func:`run` (with ``lanes``, :func:`run_lanes`) by replays: the state
+    and the IMU streams are copied into the key's buffers once, each
+    event's row before its replay, and each replay's outputs into the
+    call's own tensors; the state is cloned out at the end, so nothing
+    returned aliases a buffer."""
+    axis = 1 if lanes else 0
+    rows = [x.unbind(axis) for x in timeline]
+    graphs = _step_graphs(cfg, es, Timeline(*(r[0] for r in rows)), imu,
+                          lanes)
+    graphs.load(es, imu)
+    outs = [torch.empty(o.shape[:axis] + (len(solves),) + o.shape[axis:],
+                        dtype=o.dtype, device=o.device) for o in graphs.out]
+    out_rows = [o.unbind(axis) for o in outs]
+    for e, solve in enumerate(solves):
+        TR.count("engine.steps", 1)
+        torch._foreach_copy_(graphs.row, [r[e] for r in rows])
+        graphs.step(bool(solve))
+        torch._foreach_copy_([r[e] for r in out_rows], graphs.out)
+    return graphs.state(), FusedOutput(*outs)

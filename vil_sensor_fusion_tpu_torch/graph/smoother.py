@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .._consts import const
 from ..core import lie
 from ..core import preintegration as pre
 from ..utils import tracing as TR
@@ -98,10 +99,11 @@ def _jacobi_solve(H: torch.Tensor, b: torch.Tensor, lam) -> torch.Tensor:
     return s * x[:, 0]
 
 
-@functools.lru_cache(maxsize=8)
+@functools.cache
 def _imu_scatter_const(W: int, dtype, device) -> torch.Tensor:
     """(W-1, D, 30) selection tensor: slot s maps its (state_s,
-    state_{s+1}) tangent block onto rows [s·15, (s+2)·15)."""
+    state_{s+1}) tangent block onto rows [s·15, (s+2)·15). Never dropped
+    from the cache: a captured CUDA graph reads it at its address."""
     S = STATE_DIM
     P = np.zeros((W - 1, W * S, 2 * S), np.float64)
     for s_ in range(W - 1):
@@ -176,15 +178,10 @@ def init(cfg: SmootherConfig, pose0, vel0, bias0, t0) -> SmootherState:
 # Linearization / assembly of the normal equations
 # ---------------------------------------------------------------------------
 
-def _gravity_vec(cfg: SmootherConfig, dtype, device):
-    return torch.tensor([0.0, 0.0, -cfg.imu.gravity], dtype=dtype,
-                        device=device)
-
-
 def _linearize_imu_slots(cfg: SmootherConfig, s: SmootherState,
                          x: F.KeyframeStates):
     """Linearization of all W-1 consecutive IMU factors (batched)."""
-    g = _gravity_vec(cfg, x.poses.dtype, x.poses.device)
+    g = pre.gravity_vec(cfg.imu, x.poses.dtype, x.poses.device)
     r, A_i, A_j = F.linearize_imu_factor(
         x.poses[:-1], x.vels[:-1], x.biases[:-1],
         x.poses[1:], x.vels[1:], x.biases[1:], s.imu, g)
@@ -332,8 +329,7 @@ def add_keyframe(cfg: SmootherConfig, s: SmootherState, t_new,
 
     # ---- 1. Linearize the Markov blanket of slot 0 ------------------------
     d0 = F.local_window(s.prior_lin, x).reshape(-1)
-    imu_mask = torch.zeros((W - 1,), dtype=dtype, device=device)
-    imu_mask[0] = 1.0
+    imu_mask = const((1.0,) + (0.0,) * (W - 2), dtype, device)
     btw_mask = (s.btw_i == 0).to(dtype) * s.btw_valid
     una_mask = (s.una_slot == 0).to(dtype) * s.una_valid
     H_t, b_t = _assemble(cfg, s, x, include_prior=False,
