@@ -42,6 +42,7 @@ from ..frontends import lidar as L
 from ..frontends import vio as V
 from ..fusion import engine as fu
 from ..fusion import vil
+from ..utils import tracing as TR
 from . import diagnostics as DIAG
 from . import roc as R
 
@@ -140,7 +141,24 @@ def run_scenario(spec: ExperimentSpec, cfg: vil.VilConfig,
     device and in the dtype of its sweeps, and score it: per-estimator
     errors against ground truth, the metric scores of the Hessian series,
     the gate's normalised and raw log-dets, and with ``spec.emit_dists``
-    the six dist slopes. Returns the numpy result dict."""
+    the six dist slopes and the 6 × S perturbation dists they come from.
+    Returns the numpy result dict, which also holds each sweep's frozen
+    ICP directions and each event's health and solve flags.
+
+    Program spans (``utils.tracing``): the call is ``experiments.run_scenario``
+    and its scoring ``experiments.score``; the counters
+    ``icp.frozen_sweeps`` (sweeps with a frozen ICP direction) and
+    ``gate.dropped_sweeps`` are counted from the numpy result."""
+    with TR.span("experiments.run_scenario"):
+        out = _run_scenario(spec, cfg, sc)
+        TR.count("icp.frozen_sweeps",
+                 int(np.any(out["icp_degenerate"] > 0, axis=-1).sum()))
+        TR.count("gate.dropped_sweeps", int((out["gate_keep"] == 0).sum()))
+    return out
+
+
+def _run_scenario(spec: ExperimentSpec, cfg: vil.VilConfig,
+                  sc: scenarios.VilScenario) -> dict:
     dtype, dev = sc.sweeps.xyz.dtype, sc.sweeps.xyz.device
 
     def dev_t(x):
@@ -174,20 +192,24 @@ def run_scenario(spec: ExperimentSpec, cfg: vil.VilConfig,
     # per correspondence, and raw: raw = normalised + 3·log(n_corr)), and
     # the slopes of all six perturbation directions.
     hessian = res.lidar_out.hessian
-    series = DG.score_series(METRIC_NAMES, hessian)
-    scores = {n: s.score_trans for n, s in series.items()}
-    scores.update({f"{n}_rot": s.score_rot for n, s in series.items()})
-    scores["gate_trans_logdet"] = res.gate.trans_d_opt
-    scores["gate_rot_logdet"] = res.gate.rot_d_opt
-    raw = DG.logdet_gate(hessian, DG.GateConfig(normalize_per_corr=False))
-    scores["gate_trans_logdet_raw"] = raw.trans_d_opt
-    scores["gate_rot_logdet_raw"] = raw.rot_d_opt
-    if spec.emit_dists:
-        d = res.lidar_out.dists
-        slopes = M.dist_slopes_6dof(d.dists, d.shift_trans[0],
-                                    d.shift_rot[0])              # (T, 6)
-        for i, ax in enumerate(("tx", "ty", "tz", "rx", "ry", "rz")):
-            scores[f"dist_slope_{ax}"] = slopes[:, i]
+    extra = {}
+    with TR.span("experiments.score"):
+        series = DG.score_series(METRIC_NAMES, hessian)
+        scores = {n: s.score_trans for n, s in series.items()}
+        scores.update({f"{n}_rot": s.score_rot for n, s in series.items()})
+        scores["gate_trans_logdet"] = res.gate.trans_d_opt
+        scores["gate_rot_logdet"] = res.gate.rot_d_opt
+        raw = DG.logdet_gate(hessian,
+                             DG.GateConfig(normalize_per_corr=False))
+        scores["gate_trans_logdet_raw"] = raw.trans_d_opt
+        scores["gate_rot_logdet_raw"] = raw.rot_d_opt
+        if spec.emit_dists:
+            d = res.lidar_out.dists
+            slopes = M.dist_slopes_6dof(d.dists, d.shift_trans[0],
+                                        d.shift_rot[0])          # (T, 6)
+            for i, ax in enumerate(("tx", "ty", "tz", "rx", "ry", "rz")):
+                scores[f"dist_slope_{ax}"] = slopes[:, i]
+            extra["dists"] = _np(d.dists)                        # (T, 6, S)
 
     return {
         "spec": dataclasses.asdict(spec),
@@ -209,8 +231,12 @@ def run_scenario(spec: ExperimentSpec, cfg: vil.VilConfig,
         "lidar_poses": _np(res.lidar_out.pose),
         "gt_fused_poses": _np(gt_fused),
         "gate_keep": _np(res.gate.keep),
+        "icp_degenerate": _np(res.lidar_out.degenerate),         # (T, 6)
+        "fused_healthy": _np(res.fused.healthy),
+        "fused_solved": _np(res.fused.solved),
         "scores": {k: _np(v) for k, v in scores.items()},
         "hessian": _np(hessian),
+        **extra,
     }
 
 

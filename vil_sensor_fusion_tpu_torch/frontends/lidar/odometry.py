@@ -218,10 +218,11 @@ def step(
 
     # --- Perturbation-sweep correspondence distances ------------------------
     if cfg.emit_dists:
-        dists = I.perturbation_dists(
-            pose, q_corners, q_corner_mask, q_surfs, q_surf_mask,
-            sub_c.points, sub_c.mask, sub_s.points, sub_s.mask,
-            cfg.icp, n_shifts=cfg.dists_shifts)
+        with TR.span("icp.perturbation_dists"):
+            dists = I.perturbation_dists(
+                pose, q_corners, q_corner_mask, q_surfs, q_surf_mask,
+                sub_c.points, sub_c.mask, sub_s.points, sub_s.mask,
+                cfg.icp, n_shifts=cfg.dists_shifts)
     else:
         dists = _zero_dists(cfg, dtype, pose.device)
 

@@ -38,6 +38,7 @@ from ..degeneracy import gate as DG
 from ..frontends import lidar as L
 from ..frontends import vio as V
 from ..frontends.vio import photometric as PH
+from ..utils import tracing as TR
 from . import engine as E
 
 
@@ -118,63 +119,77 @@ def run_vil(
     ``mesh``: a ``parallel.mesh.Mesh`` with a model axis of size N spreads
     ONE sequence's scan-to-map ICP over N ranks (``cli run
     --model-devices N``); every rank runs this call on the same inputs and
-    gets the same result."""
+    gets the same result.
+
+    Each stage is a program span (``utils.tracing``): ``vil.vio``,
+    ``vil.lidar``, ``vil.gate``, ``vil.timeline`` (the host handoff
+    between the front ends and the engine) and ``vil.fusion``; the
+    counter ``vil.runs`` counts the calls."""
     _precision.require_full_f32()
+    TR.count("vil.runs", 1)
     # --- Stage 1: VIO ------------------------------------------------------
-    if cfg.vio.use_photometric:
-        if photo_inputs is None:
-            raise ValueError(
-                "cfg.vio.use_photometric=True requires photo_inputs "
-                "(fusion.vil.PhotoInputs — see build_photo_inputs_from_bag)")
-        pi = photo_inputs
-        _, vio_out = PH.run(cfg.vio, pi.fe_cfg,
-                            PH.init_photo(cfg.vio, vio_state), pi.pyrs,
-                            pi.cand_uv, pi.cand_score, pi.cand_depth,
-                            pi.projs, pi.imu_windows)
-    else:
-        _, vio_out = V.run(cfg.vio, vio_state, vio_frames)
+    with TR.span("vil.vio"):
+        if cfg.vio.use_photometric:
+            if photo_inputs is None:
+                raise ValueError(
+                    "cfg.vio.use_photometric=True requires photo_inputs "
+                    "(fusion.vil.PhotoInputs — see "
+                    "build_photo_inputs_from_bag)")
+            pi = photo_inputs
+            _, vio_out = PH.run(cfg.vio, pi.fe_cfg,
+                                PH.init_photo(cfg.vio, vio_state), pi.pyrs,
+                                pi.cand_uv, pi.cand_score, pi.cand_depth,
+                                pi.projs, pi.imu_windows)
+        else:
+            _, vio_out = V.run(cfg.vio, vio_state, vio_frames)
 
     # --- Stage 2: LiDAR odometry -------------------------------------------
-    register_fn = None
-    if mesh is not None:
-        from ..parallel import ops as POPS
+    with TR.span("vil.lidar"):
+        register_fn = None
+        if mesh is not None:
+            from ..parallel import ops as POPS
 
-        register_fn = POPS.make_sharded_register(mesh, cfg.lidar.icp)
-    if lidar_guess_from_vio_idx is not None:
-        sel_idx = torch.as_tensor(np.asarray(lidar_guess_from_vio_idx),
-                                  device=vio_out.pose.device)
-        vio_sel = vio_out.pose[sel_idx]
-        if cfg.lidar.guess_is_delta:
-            prev = torch.cat([vio_state.pose[None], vio_sel[:-1]], dim=0)
-            lidar_pose_guesses = lie.pose_between(prev, vio_sel)
-        else:
-            lidar_pose_guesses = vio_sel
-    _, lidar_out = L.odometry.run(cfg.lidar, lidar_state, sweeps,
-                                  lidar_pose_guesses,
-                                  register_fn=register_fn)
+            register_fn = POPS.make_sharded_register(mesh, cfg.lidar.icp)
+        if lidar_guess_from_vio_idx is not None:
+            sel_idx = torch.as_tensor(np.asarray(lidar_guess_from_vio_idx),
+                                      device=vio_out.pose.device)
+            vio_sel = vio_out.pose[sel_idx]
+            if cfg.lidar.guess_is_delta:
+                prev = torch.cat([vio_state.pose[None], vio_sel[:-1]], dim=0)
+                lidar_pose_guesses = lie.pose_between(prev, vio_sel)
+            else:
+                lidar_pose_guesses = vio_sel
+        _, lidar_out = L.odometry.run(cfg.lidar, lidar_state, sweeps,
+                                      lidar_pose_guesses,
+                                      register_fn=register_fn)
 
     # --- Stage 3: degeneracy gate on the ICP Hessian -----------------------
-    gate_res = DG.logdet_gate(lidar_out.hessian, cfg.gate,
-                              n_corr=lidar_out.n_corr)
+    with TR.span("vil.gate"):
+        gate_res = DG.logdet_gate(lidar_out.hessian, cfg.gate,
+                                  n_corr=lidar_out.n_corr)
 
     # --- Stage 4: fusion ----------------------------------------------------
     poses = engine_state.smoother.states.poses
     dtype, device = poses.dtype, poses.device
-    # The LiDAR twist is the pose delta over the sweep period, so its
+    # The host handoff: both odometry streams come to the host, are merged
+    # into one time-ordered timeline there and go back to the device. The
+    # LiDAR twist is the pose delta over the sweep period, so its
     # covariance is the registration covariance scaled by 1/Δt².
-    lt = np.asarray(lidar_times)
-    dt_l = float(np.median(np.diff(lt))) if len(lt) > 1 else 0.1
-    lidar_cov = lidar_out.cov.cpu().numpy()
-    tl = E.merge_timeline([
-        (np.asarray(vio_times), vio_out.pose.cpu().numpy(),
-         vio_out.cov.cpu().numpy(), np.ones(len(vio_times)),
-         vio_out.twist_cov.cpu().numpy()),
-        (lt, lidar_out.pose.cpu().numpy(), lidar_cov,
-         gate_res.keep.cpu().numpy(), lidar_cov / max(dt_l, 1e-3) ** 2),
-    ])
-    tl = convert.to_torch(tl, device, dtype)
-    es, fused = E.run(cfg.fusion, engine_state, tl, imu_times.to(dtype),
-                      imu_accel.to(dtype), imu_gyro.to(dtype))
+    with TR.span("vil.timeline"):
+        lt = np.asarray(lidar_times)
+        dt_l = float(np.median(np.diff(lt))) if len(lt) > 1 else 0.1
+        lidar_cov = lidar_out.cov.cpu().numpy()
+        tl = E.merge_timeline([
+            (np.asarray(vio_times), vio_out.pose.cpu().numpy(),
+             vio_out.cov.cpu().numpy(), np.ones(len(vio_times)),
+             vio_out.twist_cov.cpu().numpy()),
+            (lt, lidar_out.pose.cpu().numpy(), lidar_cov,
+             gate_res.keep.cpu().numpy(), lidar_cov / max(dt_l, 1e-3) ** 2),
+        ])
+        tl = convert.to_torch(tl, device, dtype)
+    with TR.span("vil.fusion"):
+        es, fused = E.run(cfg.fusion, engine_state, tl, imu_times.to(dtype),
+                          imu_accel.to(dtype), imu_gyro.to(dtype))
     return es, VilResult(fused=fused, timeline=tl, vio_out=vio_out,
                          lidar_out=lidar_out, gate=gate_res)
 
