@@ -995,18 +995,26 @@ def check_drive(sc, x: DriveInputs, frames, res, launches: list) -> dict:
 
 @contextlib.contextmanager
 def recorded_knn_calls(calls: list):
-    """Append a copy of the inputs of every k-NN call the path makes (the
-    ICP calls ``ops.knn.knn``) to ``calls``."""
-    knn = K.knn
+    """Append a copy of the inputs of every k-NN search the path makes to
+    ``calls``, one per lane: on the CPU where the ICP calls
+    ``ops.knn.knn``, on a card at the kernel's entry ``knn_cuda_lanes``,
+    which every launch goes through (those a replay of a captured step
+    makes between its graphs too)."""
+    knn, lanes = K.knn, K.knn_cuda_lanes
 
     def record(q, t, m, k=K.K_DEFAULT):
-        calls.append((q.clone(), t.clone(), m.clone()))
+        if q.device.type != "cuda":
+            calls.append((q.clone(), t.clone(), m.clone()))
         return knn(q, t, m, k)
-    K.knn = record
+
+    def record_lanes(q, t, m, *args, **kwargs):
+        calls.extend(zip(q.clone(), t.clone(), m.clone()))
+        return lanes(q, t, m, *args, **kwargs)
+    K.knn, K.knn_cuda_lanes = record, record_lanes
     try:
         yield
     finally:
-        K.knn = knn
+        K.knn, K.knn_cuda_lanes = knn, lanes
 
 
 def check_drive_knn(calls: list) -> float:
@@ -2055,10 +2063,10 @@ def drive_bench_lanes(dev) -> dict:
     seen, calls, passes = {}, [], [0]
     lanes_kernel = K.knn_cuda_lanes
 
-    def record(q, t, m, k=K.K_DEFAULT):
+    def record(q, t, m, *args, **kwargs):
         if passes[0] == 1:
             calls.append((q.clone(), t.clone(), m.clone()))
-        return lanes_kernel(q, t, m, k)
+        return lanes_kernel(q, t, m, *args, **kwargs)
 
     def count_passes(fn):
         def counted(*a, **kw):
@@ -2203,10 +2211,10 @@ def drive_soak(dev) -> dict:
         return run
 
     def record(fn):
-        def knn(q, t, m, k=K.K_DEFAULT):
+        def knn(q, t, m, *args, **kwargs):
             if runs[0] == 1:
-                calls.append((q.clone(), t.clone(), m.clone()))
-            return fn(q, t, m, k)
+                calls.extend(zip(q.clone(), t.clone(), m.clone()))
+            return fn(q, t, m, *args, **kwargs)
         return knn
 
     sync = _sync_of(dev)
@@ -2214,7 +2222,7 @@ def drive_soak(dev) -> dict:
     K.KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
     with wrapped((SK, "estimator_chunk", count_chunks),
-                 (K, "knn", record)), tempfile.TemporaryDirectory(
+                 (K, "knn_cuda_lanes", record)), tempfile.TemporaryDirectory(
                      dir=REPO / "build") as tmp:
         summary, metrics = SK.run_soak(
             duration=SOAK_DURATION, chunk=SOAK_CHUNK, cam_w=CAM_W,
@@ -2385,10 +2393,10 @@ def drive_lidar_ablation(dev) -> dict:
     runs, calls = [0], []
     lanes_kernel = K.knn_cuda_lanes
 
-    def record(q, t, m, k=K.K_DEFAULT):
+    def record(q, t, m, *args, **kwargs):
         if runs[0] == 1:
             calls.append((q.clone(), t.clone(), m.clone()))
-        return lanes_kernel(q, t, m, k)
+        return lanes_kernel(q, t, m, *args, **kwargs)
 
     def count_runs(fn):
         def run(*a, **kw):

@@ -24,7 +24,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from vil_sensor_fusion_tpu_torch import _consts, _tree, bench, soak
+from vil_sensor_fusion_tpu_torch import _consts, _cudagraph, _tree, bench, soak
 from vil_sensor_fusion_tpu_torch.core import lie
 from vil_sensor_fusion_tpu_torch.core import preintegration as pre
 from vil_sensor_fusion_tpu_torch.data import synthetic as syn
@@ -152,20 +152,21 @@ def test_the_graph_path_is_chosen_from_the_inputs(case, monkeypatch):
     tensors replays (the device test needs a card, the rest do not)."""
     x = torch.ones(3)
     if case == "cpu":
-        assert E._graph_device(x, (x, [x])) is None
+        assert _cudagraph.graph_device(x, (x, [x])) is None
         return
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: case == "capturing")
     if case == "vmap":
         seen = []
+        plain = _cudagraph.plain_call
         torch.func.vmap(lambda y: seen.extend(
-            [E._plain_call([y]), E._plain_call([x])]) or y)(torch.ones(2, 3))
+            [plain([y]), plain([x])]) or y)(torch.ones(2, 3))
         assert seen == [False, False]
         return
     if case in ("grad", "no_grad"):
         x.requires_grad_()
     with torch.set_grad_enabled(case != "no_grad"):
-        assert E._plain_call([x]) == (case in ("plain", "no_grad"))
+        assert _cudagraph.plain_call([x]) == (case in ("plain", "no_grad"))
 
 
 @pytest.mark.parametrize("case", [

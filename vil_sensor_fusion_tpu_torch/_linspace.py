@@ -15,16 +15,26 @@ import numpy as np
 import torch
 
 from . import DEFAULT_DEVICE
+from ._consts import const
+
+
+def _values(stop: float, num: int) -> np.ndarray:
+    if num == 1:
+        return np.zeros(1)
+    div = num - 1
+    return np.append((stop * (1.0 / div)) * np.arange(div, dtype=np.float64),
+                     stop)
 
 
 def linspace0(stop: float, num: int, dtype=torch.float64,
               device=DEFAULT_DEVICE) -> torch.Tensor:
     """``jnp.linspace(0.0, stop, num)`` (endpoint included) in float64,
     cast to ``dtype`` on ``device``."""
-    if num == 1:
-        out = np.zeros(1)
-    else:
-        div = num - 1
-        out = np.append((stop * (1.0 / div)) * np.arange(div, dtype=np.float64),
-                        stop)
-    return torch.as_tensor(out, dtype=dtype, device=device)
+    return torch.as_tensor(_values(stop, num), dtype=dtype, device=device)
+
+
+def linspace0_const(stop: float, num: int, dtype, device) -> torch.Tensor:
+    """:func:`linspace0`'s values as a shared device constant
+    (``_consts.const``): what a step that a CUDA graph captures reads.
+    Nothing may write into it."""
+    return const(tuple(_values(stop, num).tolist()), dtype, device)

@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from ..._linspace import linspace0
+from ..._linspace import linspace0_const
 from ...core import lie
 from ...ops import eig3 as E3
 from ...ops import eig6 as E6
@@ -217,7 +217,7 @@ def perturbation_dists(
     are taken once, at the solution; the 6×S perturbed poses are then
     evaluated together as one ``(6·S, Q, 3)`` batch. Shifts run over
     0..0.2 (special_graphs.py:37) with ``jnp.linspace``'s values, in
-    float64 and cast."""
+    float64 and cast; the shift tensors returned are shared constants."""
     dtype, device = pose.dtype, pose.device
     centroid, ldir, wl = line_fits(
         pose, corners, corner_mask, map_corners, map_corner_mask, cfg)
@@ -226,8 +226,8 @@ def perturbation_dists(
     nl = torch.clamp(torch.sum(wl), min=1.0)
     np_ = torch.clamp(torch.sum(wp), min=1.0)
 
-    s_t = linspace0(max_shift_trans, n_shifts, dtype, device)
-    s_r = linspace0(max_shift_rot, n_shifts, dtype, device)
+    s_t = linspace0_const(max_shift_trans, n_shifts, dtype, device)
+    s_r = linspace0_const(max_shift_rot, n_shifts, dtype, device)
     mags = torch.cat([s_t.expand(3, n_shifts), s_r.expand(3, n_shifts)])
     xi = (torch.eye(6, dtype=dtype, device=device)[:, None, :]
           * mags[:, :, None]).reshape(6 * n_shifts, 6)

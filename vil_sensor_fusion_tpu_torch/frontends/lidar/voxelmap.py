@@ -143,7 +143,7 @@ def insert_hashed(
     points = torch.cat([m.points, m.points[:1]], dim=0)
     points[tgt] = new_pts.to(dtype)
     mask = torch.cat([alive, alive[:1]], dim=0)
-    mask[tgt] = 1.0
+    mask.index_fill_(0, tgt, 1.0)
     points, mask = points[:C], mask[:C]
     return VoxelMap(points=points * mask[:, None], mask=mask)
 

@@ -39,8 +39,10 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from .. import _cudagraph as CG
 from .. import _precision, _tree
 from .._consts import const
+from .._cudagraph import graph_device as _graph_device
 from ..core import lie
 from ..core import preintegration as pre
 from ..graph import smoother as S
@@ -431,37 +433,6 @@ def run_lanes(cfg: FusionConfig, es: EngineState, timeline: Timeline,
 # CUDA graphs: each event step captured once per key, then replayed
 # ---------------------------------------------------------------------------
 
-def _plain_call(leaves: list) -> bool:
-    """No functorch transform (a caller's ``vmap``, ``grad`` or ``jvp``)
-    wraps the call or its inputs, no capture is under way on the current
-    stream, and no input records autograd. Asks the current CUDA device."""
-    F = torch._C._functorch
-    return (F.maybe_current_level() is None
-            and not any(F.is_functorch_wrapped_tensor(x) for x in leaves)
-            and not (torch.is_grad_enabled()
-                     and any(x.requires_grad for x in leaves))
-            and not torch.cuda.is_current_stream_capturing())
-
-
-def _graph_device(*trees) -> torch.device | None:
-    """The card on which a call replays captured steps, or ``None`` for the
-    eager step: every input is a tensor on one CUDA device and the call is
-    plain (:func:`_plain_call`)."""
-    leaves = _tree.tree_leaves(trees)
-    if not leaves or not all(isinstance(x, torch.Tensor) for x in leaves):
-        return None
-    dev = leaves[0].device
-    if dev.type != "cuda" or any(x.device != dev for x in leaves):
-        return None
-    with torch.cuda.device(dev):
-        return dev if _plain_call(leaves) else None
-
-
-@functools.cache
-def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
-    return torch.cuda.Stream(dev)
-
-
 class _StepGraphs:
     """The captured event steps of one key (:func:`_step_graphs`): static
     buffers for the state, the event row, the IMU streams and the six
@@ -525,7 +496,7 @@ class _StepGraphs:
         stream, which makes the lazy constants and that stream's cuBLAS and
         cuSOLVER handles and workspaces."""
         dev = self.out[0].device
-        stream = _capture_stream(dev)
+        stream = CG.capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             self._advance(solve)
@@ -558,15 +529,10 @@ def _step_graphs(cfg: FusionConfig, es: EngineState, row: Timeline,
     """The :class:`_StepGraphs` of (config, lanes, device, every input's
     shape and dtype), least recently used dropped past ``_GRAPH_KEYS``."""
     leaves = _tree.tree_leaves((es, row, imu))
-    key = (cfg, lanes, leaves[0].device) + tuple(
-        (tuple(x.shape), x.dtype) for x in leaves)
-    graphs = _GRAPHS.pop(key, None)
-    if graphs is None:
-        graphs = _StepGraphs(cfg, es, row, imu, lanes)
-    _GRAPHS[key] = graphs
-    if len(_GRAPHS) > _GRAPH_KEYS:
-        _GRAPHS.popitem(last=False)
-    return graphs
+    key = (cfg, lanes, leaves[0].device) + CG.shape_key(leaves)
+    return CG.lookup(_GRAPHS, key,
+                     lambda: _StepGraphs(cfg, es, row, imu, lanes),
+                     _GRAPH_KEYS)
 
 
 def _run_graphs(cfg: FusionConfig, es: EngineState, timeline: Timeline,

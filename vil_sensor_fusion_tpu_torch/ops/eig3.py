@@ -53,7 +53,7 @@ def _unit_or(v: torch.Tensor, axis: int) -> torch.Tensor:
     fixed fallback for fully degenerate rows, eig3.py:78-79 and :94-96)."""
     nrm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     fallback = torch.zeros_like(v)
-    fallback[..., axis] = 1.0
+    fallback[..., axis].fill_(1.0)
     return torch.where(nrm > 1e-20, v / torch.clamp(nrm, min=1e-20), fallback)
 
 

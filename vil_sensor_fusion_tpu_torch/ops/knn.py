@@ -193,11 +193,15 @@ def knn_cuda_lanes(
     targets: torch.Tensor,     # (B, M, 3)
     t_mask: torch.Tensor,      # (B, M)
     k: int = K_DEFAULT,
+    *,
+    out: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """B independent k-NN searches of one shape by the CUDA kernel in one
     launch on the inputs' device's current stream: lane b's queries
     against lane b's masked targets; outputs (B, Q, 5). Inputs: contiguous
-    float32 CUDA tensors on one device. The host work per call is kept
+    float32 CUDA tensors on one device. ``out``: contiguous (B, Q, 5)
+    int32 and float32 tensors on that device to write the outputs into
+    (and return) in place of new ones. The host work per call is kept
     small, since the main path calls this 4 times per sweep: the plan is
     cached, the stream handle is read without building a Stream object,
     and the split scratch (only when the plan splits the targets) is the
@@ -205,8 +209,18 @@ def knn_cuda_lanes(
     global KERNEL_LAUNCHES
     B, Q, M = _checked(queries, targets, t_mask, k)
     dev = queries.device
-    idx = torch.empty(B, Q, K_DEFAULT, dtype=torch.int32, device=dev)
-    dist = torch.empty(B, Q, K_DEFAULT, dtype=torch.float32, device=dev)
+    if out is None:
+        idx = torch.empty(B, Q, K_DEFAULT, dtype=torch.int32, device=dev)
+        dist = torch.empty(B, Q, K_DEFAULT, dtype=torch.float32, device=dev)
+    else:
+        idx, dist = out
+        shape = (B, Q, K_DEFAULT)
+        if (idx.shape != shape or dist.shape != shape
+                or idx.dtype != torch.int32 or dist.dtype != torch.float32
+                or idx.device != dev or dist.device != dev
+                or not (idx.is_contiguous() and dist.is_contiguous())):
+            raise ValueError(f"knn_cuda_lanes writes contiguous {shape} "
+                             f"int32 and float32 outputs on {dev}")
     if Q == 0 or B == 0:
         return idx, dist
     p = _plan(Q, M, B)
