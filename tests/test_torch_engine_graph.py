@@ -3,9 +3,10 @@ and ``run_lanes`` replay one CUDA graph of the step per solve flag.
 
 On the CPU: when the graph path is taken; the constants hoisted out of the
 step equal the values they replace; the step makes no host sync and builds
-no tensor from host data (what a capture refuses); and the graph path, with
-each replay run as the body it captures, equals the eager step bit for bit
-and counts one replay per step.
+no tensor from host data (what a capture refuses); and the graph path of
+``_cudagraph.scan``, with each replay run as the body it captures, equals
+the eager step bit for bit and counts one capture per solve flag (its
+first event runs the step eagerly) and one replay per other event.
 
 On the card (marked ``cuda``; skips without one), bit for bit against the
 eager step: ``run`` over road-soak chunks with a LiDAR sweep the gate drops
@@ -40,7 +41,12 @@ IMU_PER_CHUNK = 90            # soak.py: (chunk + 0.35 s) at 200 Hz
 @pytest.fixture(autouse=True)
 def _fresh_graphs(monkeypatch):
     """Each test captures its own steps."""
-    monkeypatch.setattr(E, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setattr(_cudagraph, "_GRAPHS",
+                        collections.defaultdict(collections.OrderedDict))
+
+
+def _entries():
+    return list(_cudagraph._GRAPHS["engine"].values())
 
 
 def _road_cfg(window=6):
@@ -131,7 +137,7 @@ def _assert_same_bits(a, b):
 
 
 def _eager(monkeypatch):
-    monkeypatch.setattr(E, "_graph_device", lambda *trees: None)
+    monkeypatch.setattr(_cudagraph, "graph_device", lambda *trees: None)
 
 
 def _counted(fn, *args):
@@ -235,12 +241,17 @@ def test_the_step_makes_no_host_sync_and_no_host_data_tensor(lanes, solve):
 
 def _graphs_as_bodies(monkeypatch):
     """The graph path on the CPU: the inputs count as a card's, and each
-    capture gives back its body, run eagerly at every replay."""
-    monkeypatch.setattr(E, "_graph_device",
+    capture runs its row's step and gives back its body, run eagerly at
+    every replay."""
+    monkeypatch.setattr(_cudagraph, "graph_device",
                         lambda *trees: _tree.tree_leaves(trees)[0].device)
-    monkeypatch.setattr(E._StepGraphs, "_capture", lambda self, solve:
-                        SimpleNamespace(replay=functools.partial(self._body,
-                                                                 solve)))
+
+    def capture(self, fn):
+        self._body(fn)
+        return [(SimpleNamespace(replay=functools.partial(self._body, fn)),
+                 None)]
+
+    monkeypatch.setattr(_cudagraph.Graphs, "_capture", capture)
 
 
 @pytest.mark.parametrize("lanes", [False, True])
@@ -269,11 +280,13 @@ def test_the_graph_path_equals_the_eager_step_on_the_cpu(lanes, monkeypatch):
         _assert_same_bits(out_e, out_g)
         _assert_same_bits(es_e, es_g)
         steps = out_e.times.shape[-1]
+        captures = 2 if k == 0 else 0
         assert c_e == {"engine.steps": steps}
-        assert c_g == {"engine.steps": steps, "engine.graph_replays": steps,
+        assert c_g == {"engine.steps": steps,
+                       "engine.graph_replays": steps - captures,
                        **({"engine.graph_captures": 2} if k == 0 else {})}
     assert not bool(out_e.healthy.all()) or lanes   # the guard rejected one
-    leaves = _tree.tree_leaves(next(iter(E._GRAPHS.values())).es)
+    leaves = _tree.tree_leaves(_entries()[0].carry)
     held = {x.untyped_storage().data_ptr() for x in leaves}
     assert not held & {x.untyped_storage().data_ptr()
                        for x in _tree.tree_leaves(graph[-1][:2])}
@@ -309,7 +322,8 @@ def test_run_replays_the_eager_step_over_road_chunks(dev, monkeypatch):
                                                      monkeypatch)
         _assert_same_bits(out_g, out_e)
         _assert_same_bits(es_g, es_e)
-        assert counts == {"engine.steps": 3, "engine.graph_replays": 3,
+        assert counts == {"engine.steps": 3,
+                          "engine.graph_replays": 3 - 2 * (k == 0),
                           **({"engine.graph_captures": 2} if k == 0 else {})}
         rejected += int((out_g.healthy == 0).sum())
         es = es_g
@@ -325,7 +339,8 @@ def test_run_lanes_replays_the_eager_step_over_a_town_pass(dev, monkeypatch):
                                                      tl, imu, monkeypatch)
         _assert_same_bits(out_g, out_e)
         _assert_same_bits(es_g, es_e)
-        assert counts == {"engine.steps": 15, "engine.graph_replays": 15,
+        assert counts == {"engine.steps": 15,
+                          "engine.graph_replays": 15 - 2 * (k == 0),
                           **({"engine.graph_captures": 2} if k == 0 else {})}
 
 
@@ -359,12 +374,12 @@ def test_two_windows_in_one_process_share_no_buffers(dev, monkeypatch):
                 E.run, cfg, states[i], tl, imu, monkeypatch)
             _assert_same_bits(out_g, out_e)
             _assert_same_bits(es_g, es_e)
-            assert counts["engine.graph_replays"] == 3
+            assert counts["engine.graph_replays"] == 3 - 2 * (k == 0)
             assert counts.get("engine.graph_captures", 0) == (
                 2 if k == 0 else 0)
             states[i] = es_g
-    assert len(E._GRAPHS) == 2
+    assert len(_entries()) == 2
     a, b = ({x.untyped_storage().data_ptr()
-             for x in _tree.tree_leaves((g.es, g.row, g.imu, g.out))}
-            for g in E._GRAPHS.values())
+             for x in _tree.tree_leaves((g.carry, g.row, g.extra, g.out))}
+            for g in _entries())
     assert not a & b

@@ -87,10 +87,19 @@ def _tiny_problem(n_events=12, n_imu=128):
 
 
 @pytest.fixture(scope="module")
-def tiny():
+def tiny_run():
+    """The tiny problem and JAX's ``run`` on it, compiled once for any
+    timeline of its shapes."""
     cfg, es, tl, imu = _tiny_problem()
-    es_j, out_j = jax.jit(lambda es, tl: JFU.run(
-        cfg, es, tl, imu.times, imu.accel, imu.gyro))(es, tl)
+    run = jax.jit(lambda es, tl: JFU.run(
+        cfg, es, tl, imu.times, imu.accel, imu.gyro))
+    return cfg, es, tl, imu, run
+
+
+@pytest.fixture(scope="module")
+def tiny(tiny_run):
+    cfg, es, tl, imu, run = tiny_run
+    es_j, out_j = run(es, tl)
     return cfg, es, tl, imu, es_j, out_j
 
 
@@ -232,6 +241,23 @@ def test_non_pd_covariance_gives_nan_not_an_exception():
                                                            dtype=torch.float64),
                            1e-9).numpy()
     assert np.isnan(xj).all() and np.isnan(xt).all()
+
+
+def test_engine_run_matches_jax_with_gate_dropped_events(tiny_run):
+    """The degeneracy gate drops a LiDAR sweep and a VIO event: neither
+    adds a factor, the dropped VIO event does not solve, and the LiDAR
+    source never solves after its odometry."""
+    cfg, es, tl, imu, run = tiny_run
+    source = np.asarray(tl.source)
+    keep = np.asarray(tl.keep).copy()
+    keep[[np.nonzero(source == 1)[0][1], np.nonzero(source == 0)[0][2]]] = 0
+    tl = tl._replace(keep=jnp.asarray(keep))
+    es_j, out_j = run(es, tl)
+    es_t, out_t = TFU.run(_t(cfg), _t(es), _t(tl), *_t(tuple(imu)))
+    _tree_close(out_t, out_j)
+    _tree_close(es_t.smoother.states, es_j.smoother.states)
+    np.testing.assert_array_equal(out_t.solved.numpy(),
+                                  ((source == 0) & (keep > 0.5)) * 1.0)
 
 
 def test_health_guard_rejects_nan_event_like_jax():

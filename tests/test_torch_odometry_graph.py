@@ -48,7 +48,8 @@ STRIDE = 10                # CPU sweeps: every 10th azimuth column (16 × 180)
 @pytest.fixture(autouse=True)
 def _fresh_graphs(monkeypatch):
     """Each test captures its own steps."""
-    monkeypatch.setattr(O, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setattr(_cudagraph, "_GRAPHS",
+                        collections.defaultdict(collections.OrderedDict))
 
 
 def _cfg(azimuth=rc.AZIMUTH // STRIDE, **kw):
@@ -103,7 +104,7 @@ def _assert_same_bits(a, b):
 
 
 def _eager(monkeypatch):
-    monkeypatch.setattr(O, "_graph_device", lambda *trees: None)
+    monkeypatch.setattr(_cudagraph, "graph_device", lambda *trees: None)
 
 
 def _counted(fn, *args):
@@ -144,9 +145,9 @@ def test_the_graph_path_is_chosen_from_the_inputs(case, lanes, monkeypatch):
         raise _Graph
 
     monkeypatch.setattr(O, "step", step)
-    monkeypatch.setattr(O, "_run_graphs", graphs)
+    monkeypatch.setattr(_cudagraph, "Graphs", graphs)
     if case != "cpu":
-        monkeypatch.setattr(O, "_graph_device", lambda *trees: (
+        monkeypatch.setattr(_cudagraph, "graph_device", lambda *trees: (
             torch.device("cpu") if _cudagraph.plain_call(
                 _tree.tree_leaves(trees)) else None))
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
@@ -233,16 +234,17 @@ def test_the_step_makes_no_host_sync_and_no_host_data_tensor(two_stage,
 
 def _graphs_as_bodies(monkeypatch):
     """The graph path on the CPU: the inputs count as a card's, and a
-    capture makes one graph whose replay runs the body it captures."""
-    monkeypatch.setattr(O, "_graph_device",
+    capture runs its row's step and makes one graph whose replay runs the
+    body it captures."""
+    monkeypatch.setattr(_cudagraph, "graph_device",
                         lambda *trees: _tree.tree_leaves(trees)[0].device)
 
-    def capture(self, state, row):
-        out = self.first(state, row)
-        self.graphs = [SimpleNamespace(replay=self._body)]
-        return out
+    def capture(self, fn):
+        self._body(fn)
+        return [(SimpleNamespace(replay=functools.partial(self._body, fn)),
+                 None)]
 
-    monkeypatch.setattr(O._SweepGraphs, "capture", capture)
+    monkeypatch.setattr(_cudagraph.Graphs, "_capture", capture)
 
 
 @pytest.mark.parametrize("lanes", [False, True])
@@ -280,7 +282,8 @@ def test_the_graph_path_equals_the_eager_step_on_the_cpu(lanes, monkeypatch):
         assert c_g.get("odometry.graph_replays", 0) == T - (k == 0)
         assert c_g.get("odometry.graph_captures", 0) == (k == 0)
         assert "odometry.graph_replays" not in c_e
-    leaves = _tree.tree_leaves(next(iter(O._GRAPHS.values())).state)
+    leaves = _tree.tree_leaves(
+        next(iter(_cudagraph._GRAPHS["odometry"].values())).carry)
     held = {x.untyped_storage().data_ptr() for x in leaves}
     assert not held & {x.untyped_storage().data_ptr()
                        for x in _tree.tree_leaves(graph[-1][:2])}

@@ -52,10 +52,12 @@ def _inv(m: torch.Tensor) -> torch.Tensor:
 def _finite_only(fn: Callable, m: torch.Tensor) -> torch.Tensor:
     """``fn`` (an eigenvalue or singular-value routine, ``(..., n, n)`` →
     ``(..., n)``) on the finite matrices of the batch; all NaN for a matrix
-    with a non-finite entry."""
+    with a non-finite entry. A zero comes out as +0: the card's batched
+    ``eigvalsh`` gives the zero Hessian's eigenvalues either sign from one
+    call to the next."""
     ok = torch.isfinite(m).all(dim=-1).all(dim=-1)
     eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
-    vals = fn(torch.where(ok[..., None, None], m, eye))
+    vals = fn(torch.where(ok[..., None, None], m, eye)) + 0.0
     return torch.where(ok[..., None], vals, torch.nan)
 
 

@@ -13,10 +13,11 @@ no host round trip; the first sweep registers against the empty map like
 the JAX scan does and keeps the guess. The per-sweep covariance runs once,
 batched over all sweeps, after the loop.
 
-CUDA graphs: on a card, ``run`` and ``run_lanes`` (without ``vmap``-ping
-``run``: they map :func:`step` over the lanes) run a configuration's first
-sweep eagerly, capture the step as a chain of graphs split at each k-NN
-search, and replay that chain for every later sweep, the searches launched
+One loop: ``run`` and ``run_lanes`` loop :func:`step` over the sweeps
+(``vmap``-ped over the lanes for ``run_lanes``) through
+``_cudagraph.scan``. On a card they run a configuration's first sweep
+eagerly, capture the step as a chain of graphs split at each k-NN search,
+and replay that chain for every later sweep, the searches launched
 between the graphs as in the eager step; the values are the eager step's,
 bit for bit. CPU calls, calls under a functorch transform and calls with a
 ``register_fn`` take the eager step.
@@ -24,15 +25,13 @@ bit for bit. CPU calls, calls under a functorch transform and calls with a
 
 from __future__ import annotations
 
-import collections
 import functools
 from typing import NamedTuple
 
 import torch
 
-from ... import DEFAULT_DEVICE, _tree
+from ... import DEFAULT_DEVICE
 from ... import _cudagraph as CG
-from ..._cudagraph import graph_device as _graph_device
 from ...core import lie
 from ...ops import eig6 as E6
 from ...ops import knn as knn_ops
@@ -286,18 +285,7 @@ def run(
     init0 = state.initialized
     with TR.span("odometry.run"):
         TR.count("odometry.sweeps", pose_guesses.shape[0])
-        if (register_fn is None
-                and _graph_device(state, sweeps, pose_guesses) is not None):
-            state, res = _run_graphs(cfg, state, sweeps, pose_guesses,
-                                     lanes=False)
-        else:
-            outs = []
-            for t in range(pose_guesses.shape[0]):
-                sweep = Sweep(*(x[t] for x in sweeps))
-                state, res = step(cfg, state, sweep, pose_guesses[t],
-                                  register_fn=register_fn, compute_cov=False)
-                outs.append(res)
-            res = _tree.tree_map(lambda *xs: torch.stack(xs, dim=0), *outs)
+        state, res = _scan(cfg, state, sweeps, pose_guesses, register_fn, 0)
         res = _with_cov(cfg, init0, res)
     return state, res
 
@@ -313,200 +301,32 @@ def run_lanes(
     bench's LiDAR stage). On the card each k-NN search of a sweep is one
     kernel launch for all lanes (``ops.knn``'s batching rule), and each
     sweep of all lanes is one chain of replays."""
-    if _graph_device(state, sweeps, pose_guesses) is None:
-        return torch.func.vmap(lambda st, sw, g: run(cfg, st, sw, g))(
-            state, sweeps, pose_guesses)
     with TR.span("odometry.run"):
         TR.count("odometry.sweeps", pose_guesses.shape[1])
-        new_state, res = _run_graphs(cfg, state, sweeps, pose_guesses,
-                                     lanes=True)
+        new_state, res = _scan(cfg, state, sweeps, pose_guesses, None, 1)
         res = torch.func.vmap(functools.partial(_with_cov, cfg))(
             state.initialized, res)
     return new_state, res
 
 
-# ---------------------------------------------------------------------------
-# CUDA graphs: each sweep step captured once per key, split at its k-NN
-# searches, then replayed
-# ---------------------------------------------------------------------------
+def _scan(cfg: LidarOdomConfig, state: LidarOdomState, sweeps: Sweep,
+          guesses: torch.Tensor, register_fn,
+          axis: int) -> tuple[LidarOdomState, LidarOdomResult]:
+    """:func:`run`'s loop (``axis`` 0) and :func:`run_lanes`' (``axis`` 1,
+    :func:`step` ``vmap``-ped over the lanes): one ``_cudagraph.scan`` of
+    the step without its covariance, replayed on a card as a chain of
+    graphs split at each k-NN search (``ops.knn.knn_cuda_lanes``)."""
 
-class _SweepGraphs:
-    """The captured sweep step of one key (:func:`_sweep_graphs`): static
-    buffers for the state, the sweep and its guess (the row) and the
-    result's leaves, and :func:`step` (``vmap``-ped over lanes with
-    ``lanes``) from the buffers back into them, captured as a chain of
-    CUDA graphs that ends at each k-NN search. A replay runs each graph
-    and, between two, launches the search it ended at with
-    ``ops.knn.knn_cuda_lanes`` on inputs and into outputs that the graphs
-    keep at fixed addresses: the hand-written kernel launches as in the
-    eager step, and whoever wraps that entry sees every launch. The graphs
-    share one memory pool and replay in the order they were captured."""
+    def one(st, row):
+        return step(cfg, st, *row, register_fn=register_fn,
+                    compute_cov=False)
 
-    def __init__(self, cfg: LidarOdomConfig, state: LidarOdomState,
-                 row: list, lanes: bool):
-        self.cfg, self.lanes = cfg, lanes
-        self.state = _tree.tree_map(_buffer, state)
-        self.row = [_buffer(x) for x in row]
-        self.out: list | None = None     # the result's leaves
-        self.template = None             # the result's structure
-        self.graphs: list = []           # one more than the searches
-        self.searches: list = []         # (queries, targets, mask, idx, dist)
-
-    def load(self, state: LidarOdomState) -> None:
-        torch._foreach_copy_(_tree.tree_leaves(self.state),
-                             _tree.tree_leaves(state))
-
-    def result(self, leaves: list) -> LidarOdomResult:
-        it = iter(leaves)
-        return _tree.tree_map(lambda _: next(it), self.template)
-
-    def _advance(self, state: LidarOdomState, row: list):
-        fn = functools.partial(step, self.cfg, compute_cov=False)
-        if self.lanes:
-            fn = torch.func.vmap(fn)
-        return fn(state, Sweep(*row[:-1]), row[-1])
-
-    def first(self, state: LidarOdomState, row: list):
-        """The eager step of the key's first sweep; its result sizes the
-        output buffers."""
-        new_state, res = self._advance(state, row)
-        self.out = [_buffer(x) for x in _tree.tree_leaves(res)]
-        self.template = _tree.tree_map(lambda _: None, res)
-        return new_state, res
-
-    def _body(self) -> None:
-        """One sweep step from the buffers into them: what a replay
-        does."""
-        state, res = self._advance(self.state, self.row)
-        dst, src = _tree.tree_leaves(self.state), _tree.tree_leaves(state)
-        out = _tree.tree_leaves(res)
-        for d, x in zip(dst + self.out, src + out):
-            if d.shape != x.shape or d.dtype != x.dtype:
-                raise RuntimeError(
-                    f"odometry step graph: a {d.dtype} {tuple(d.shape)} "
-                    f"buffer would take a {x.dtype} {tuple(x.shape)} value")
-        # Every leaf the step returns is a new tensor or a shared constant,
-        # never a view of a buffer, so no copy below reads a buffer another
-        # has written.
-        torch._foreach_copy_(self.out, out)
-        torch._foreach_copy_(dst, src)
-
-    def capture(self, state: LidarOdomState, row: list):
-        """:meth:`first` on the capture stream, which also makes the lazy
-        constants, the kernel's build and that stream's library handles and
-        workspaces; then :meth:`_body` captured in segments. Returns the
-        first sweep's (state, result)."""
-        dev = self.row[0].device
-        stream = CG.capture_stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            new_state, res = self.first(state, row)
-            self._capture_segments()
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        return new_state, res
-
-    def _capture_segments(self) -> None:
-        """Capture :meth:`_body` on the current stream with
-        ``ops.knn.knn_cuda_lanes`` standing in for a split: each search
-        ends the open graph, leaves static outputs for the replay's launch
-        to write, and opens the next graph."""
-        pool = torch.cuda.graph_pool_handle()
-        graphs: list = []
-        searches: list = []
-        open_: list = []
-
-        def begin():
-            graph = torch.cuda.CUDAGraph()
-            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-            open_.append(graph)
-            graphs.append(graph)
-
-        def end():
-            open_.pop().capture_end()
-
-        def split(queries, targets, t_mask, k=knn_ops.K_DEFAULT):
-            shape = queries.shape[:2] + (k,)
-            idx = torch.empty(shape, dtype=torch.int32, device=queries.device)
-            dist = torch.empty(shape, dtype=queries.dtype,
-                               device=queries.device)
-            searches.append((queries, targets, t_mask, idx, dist))
-            end()
-            begin()
-            return idx, dist
-
-        real = knn_ops.knn_cuda_lanes
-        knn_ops.knn_cuda_lanes = split
-        try:
-            begin()
-            self._body()
-        finally:
-            knn_ops.knn_cuda_lanes = real
-            if open_:
-                end()
-        self.graphs, self.searches = graphs, searches
-
-    def replay(self) -> None:
-        knn = knn_ops.knn_cuda_lanes     # as the module holds it now
-        for graph, (q, t, m, idx, dist) in zip(self.graphs, self.searches):
-            graph.replay()
-            knn(q, t, m, out=(idx, dist))
-        self.graphs[-1].replay()
-
-
-def _buffer(x: torch.Tensor) -> torch.Tensor:
-    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
-
-
-# Keys kept captured in one process: the experiment grid and the ablation
-# run several configurations.
-_GRAPHS: collections.OrderedDict = collections.OrderedDict()
-_GRAPH_KEYS = 8
-
-
-def _sweep_graphs(cfg: LidarOdomConfig, state: LidarOdomState, row: list,
-                  lanes: bool) -> _SweepGraphs:
-    """The :class:`_SweepGraphs` of (config, lanes, device, every input's
-    shape and dtype), least recently used dropped past ``_GRAPH_KEYS``."""
-    leaves = _tree.tree_leaves(state) + row
-    key = (cfg, lanes, leaves[0].device) + CG.shape_key(leaves)
-    return CG.lookup(_GRAPHS, key,
-                     lambda: _SweepGraphs(cfg, state, row, lanes),
-                     _GRAPH_KEYS)
-
-
-def _run_graphs(cfg: LidarOdomConfig, state: LidarOdomState, sweeps: Sweep,
-                guesses: torch.Tensor,
-                lanes: bool) -> tuple[LidarOdomState, LidarOdomResult]:
-    """:func:`run`'s loop (with ``lanes``, :func:`run_lanes`'s) by replays.
-    A key's first sweep runs eagerly and is captured; after it, the state
-    is copied into the key's buffers once, each sweep's row before its
-    replay, and each replay's result into the call's own stacked tensors.
-    The state is cloned out at the end, so nothing returned aliases a
-    buffer."""
-    axis = 1 if lanes else 0
-    rows = [x.unbind(axis) for x in (*sweeps, guesses)]
-    T = len(rows[-1])
-    graphs = _sweep_graphs(cfg, state, [r[0] for r in rows], lanes)
-    first = None
-    if not graphs.graphs:
-        TR.count("odometry.graph_captures", 1)
-        state, first = graphs.capture(state, [r[0] for r in rows])
-    outs = [torch.empty(o.shape[:axis] + (T,) + o.shape[axis:],
-                        dtype=o.dtype, device=o.device) for o in graphs.out]
-    out_rows = [o.unbind(axis) for o in outs]
-    if first is not None:
-        torch._foreach_copy_([r[0] for r in out_rows],
-                             _tree.tree_leaves(first))
-    t0 = 0 if first is None else 1
-    if t0 < T:
-        graphs.load(state)
-        for t in range(t0, T):
-            torch._foreach_copy_(graphs.row, [r[t] for r in rows])
-            graphs.replay()
-            TR.count("odometry.graph_replays", 1)
-            torch._foreach_copy_([r[t] for r in out_rows], graphs.out)
-        state = _tree.tree_map(torch.clone, graphs.state)
-    return state, graphs.result(outs)
+    graphed = (register_fn is None
+               and CG.graph_device(state, sweeps, guesses) is not None)
+    fn = torch.func.vmap(one) if axis else one
+    return CG.scan(lambda _: fn, state, (sweeps, guesses), axis=axis,
+                   graphed=graphed, key=cfg, name="odometry",
+                   split=(knn_ops, "knn_cuda_lanes"))
 
 
 def constant_velocity_guess(prev_pose, prev_prev_pose):

@@ -23,18 +23,19 @@ Differences from the JAX functions, none of them in the numbers:
 - ``pipeline.step``'s loop over slots is :func:`init_landmarks`, all slots
   at once: each slot touches only its own rows, so the result is the same.
   Its backprojection Jacobian is in closed form where JAX takes ``jacfwd``.
-- Constant tensors made from a config (``pose_ic``, gravity) are cached per
-  dtype and device, so no step copies from the host.
+- Constant tensors made from a config (``pose_ic``, gravity) are made once
+  per dtype and device by ``_consts.const``, so no step copies from the
+  host.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 from torch.func import jacfwd
 
+from ..._consts import const
 from ...core import lie
 from . import camera as C
 
@@ -85,14 +86,6 @@ class VioState(NamedTuple):
     landmarks: torch.Tensor  # (M, 3) world points
     lm_valid: torch.Tensor   # (M,) 0/1
     cov: torch.Tensor        # (D, D), D = 15 + 3M
-
-
-@functools.lru_cache(maxsize=64)
-def _const(values: tuple, dtype: torch.dtype,
-           device: torch.device) -> torch.Tensor:
-    """A constant vector, made once per dtype and device (read only)."""
-    return torch.tensor([float(v) for v in values], dtype=dtype,
-                        device=device)
 
 
 def _solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -170,7 +163,7 @@ def propagate(
         q_new = dq[k] @ q
         q = lie.quat_normalize(live[k] * q_new + dead[k] * q)
     R = lie.quat_to_rot(torch.stack(q_start))               # (N, 3, 3)
-    g_w = _const((0.0, 0.0, -cfg.gravity), dtype, device)
+    g_w = const((0.0, 0.0, -float(cfg.gravity)), dtype, device)
     a_w = (R @ a_c[..., None])[..., 0] + g_w                 # (N, 3)
 
     # Transition F and noise Q of every sample.
@@ -244,7 +237,8 @@ def _retract(cfg: VioConfig, s: VioState, dx: torch.Tensor) -> VioState:
 
 def _landmarks_in_camera(cfg: VioConfig, s: VioState) -> torch.Tensor:
     """(M, 3) landmarks in the camera frame."""
-    pose_ic = _const(cfg.pose_ic, s.pose.dtype, s.pose.device)
+    pose_ic = const(tuple(map(float, cfg.pose_ic)), s.pose.dtype,
+                    s.pose.device)
     pose_wc = lie.pose_compose(s.pose, pose_ic)
     return lie.quat_rotate(
         lie.quat_conjugate(lie.pose_quat(pose_wc))[None],
@@ -405,7 +399,7 @@ def gravity_update(
     Mahalanobis check; otherwise the rows get variance 1e12."""
     dtype, device = s.pose.dtype, s.pose.device
     D = s.cov.shape[0]
-    e_z = _const((0.0, 0.0, 1.0), dtype, device)
+    e_z = const((0.0, 0.0, 1.0), dtype, device)
     R = lie.quat_to_rot(lie.pose_quat(s.pose))
     u = R.mT @ e_z                             # gravity direction in body
     ba = s.bias[:3]
@@ -498,7 +492,7 @@ def init_landmarks(
     exactly as the JAX loop over slots leaves them."""
     dtype, device = s.pose.dtype, s.pose.device
     M = cfg.num_landmarks
-    pose_ic = _const(cfg.pose_ic, dtype, device)
+    pose_ic = const(tuple(map(float, cfg.pose_ic)), dtype, device)
     pose_wc = lie.pose_compose(s.pose, pose_ic)
     q_wc = lie.pose_quat(pose_wc)
     l_w = (lie.quat_rotate(q_wc, C.backproject(cfg.cam, uv, depth))
@@ -515,7 +509,8 @@ def init_landmarks(
     ], 1)                                                    # (M, 3, 3)
     J = lie.quat_to_rot(q_wc) @ J_c
     ps2 = cfg.pixel_sigma ** 2
-    rm = _const((ps2, ps2, float(depth_sigma) ** 2), dtype, device)
+    rm = const((float(ps2), float(ps2), float(depth_sigma) ** 2), dtype,
+               device)
     P_l = ((J * rm) @ J.mT
            + 1e-6 * torch.eye(3, dtype=dtype, device=device))
 
