@@ -1,7 +1,10 @@
 """Replaying a stage's step as captured CUDA graphs: when a call may replay
 (:func:`graph_device`), and :func:`scan`, the one loop of a step over rows,
 eagerly or by replays of the step captured once per key and static flag
-(:class:`Graphs`).
+(:class:`Graphs`). Three stages replay through it: the fusion engine's
+event step (``fusion/engine``), the LiDAR odometry's sweep step, split at
+each k-NN search (``frontends/lidar/odometry``), and the VIO EKF's frame
+step (``frontends/vio/pipeline``).
 
 A call replays only when every input is a tensor on one CUDA device and
 nothing around it would see the replay differently from the eager ops: a

@@ -5,6 +5,15 @@ for the degeneracy metrics and the fusion back-end.
 
 Port of ``vil_sensor_fusion_tpu/frontends/vio/pipeline.py``; ``run``'s scan
 is a loop over frames with the outputs stacked along a leading T axis.
+
+One loop: ``run`` and ``run_lanes`` loop :func:`step` over the frames
+(``vmap``-ped over the lanes for ``run_lanes``) through
+``_cudagraph.scan``, the third stage after the fusion engine and the LiDAR
+odometry to replay on a card. There a key's first frame runs eagerly and
+captures the whole step as one CUDA graph (it launches no hand-written
+kernel, so nothing splits it), and every later frame of all lanes is one
+replay; the values are the eager step's, bit for bit. CPU calls and calls
+under a functorch transform or autograd take the eager step.
 """
 
 from __future__ import annotations
@@ -13,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ... import _cudagraph as CG
 from ...utils import tracing as TR
 from . import ekf as E
 
@@ -73,14 +83,9 @@ def run(
 ) -> tuple[E.VioState, VioOutput]:
     """Step over every frame on the device the inputs are on; outputs
     stacked (T, ·)."""
-    outs = []
     with TR.span("vio.run"):
         TR.count("vio.frames", frames.accel.shape[0])
-        for t in range(frames.accel.shape[0]):
-            s, out = step(cfg, s, VioFrameInput(*(x[t] for x in frames)),
-                          depth_sigma)
-            outs.append(out)
-        return s, VioOutput(*(torch.stack(f) for f in zip(*outs)))
+        return _scan(cfg, s, frames, depth_sigma, 0)
 
 
 def run_lanes(
@@ -91,6 +96,24 @@ def run_lanes(
 ) -> tuple[E.VioState, VioOutput]:
     """B frame streams at once, one set of ops per frame for all lanes:
     what ``jax.vmap(lambda s, f: run(cfg, s, f))`` computes (the bench's
-    VIO stage). Outputs (B, T, ·)."""
-    return torch.func.vmap(lambda s_, f: run(cfg, s_, f, depth_sigma))(
-        s, frames)
+    VIO stage). On a card each frame of all lanes is one replay. Outputs
+    (B, T, ·)."""
+    with TR.span("vio.run"):
+        TR.count("vio.frames", frames.accel.shape[1])
+        return _scan(cfg, s, frames, depth_sigma, 1)
+
+
+def _scan(cfg: E.VioConfig, s: E.VioState, frames: VioFrameInput,
+          depth_sigma: float, axis: int) -> tuple[E.VioState, VioOutput]:
+    """:func:`run`'s loop (``axis`` 0) and :func:`run_lanes`' (``axis`` 1,
+    :func:`step` ``vmap``-ped over the lanes): one ``_cudagraph.scan`` of
+    the step, replayed on a card as one graph. ``depth_sigma`` is baked
+    into the step, so it is part of the key."""
+
+    def one(s_, fin):
+        return step(cfg, s_, fin, depth_sigma)
+
+    fn = torch.func.vmap(one) if axis else one
+    return CG.scan(lambda _: fn, s, frames, axis=axis,
+                   graphed=CG.graph_device(s, frames) is not None,
+                   key=(cfg, depth_sigma), name="vio")
