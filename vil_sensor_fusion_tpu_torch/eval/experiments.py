@@ -145,8 +145,9 @@ def run_scenario(spec: ExperimentSpec, cfg: vil.VilConfig,
     Returns the numpy result dict, which also holds each sweep's frozen
     ICP directions and each event's health and solve flags.
 
-    Program spans (``utils.tracing``): the call is ``experiments.run_scenario``
-    and its scoring ``experiments.score``; the counters
+    Program spans (``utils.tracing``): the call is ``experiments.run_scenario``,
+    its errors against ground truth ``experiments.diagnostics`` and its
+    scoring ``experiments.score``; the counters
     ``icp.frozen_sweeps`` (sweeps with a frozen ICP direction) and
     ``gate.dropped_sweeps`` are counted from the numpy result."""
     with TR.span("experiments.run_scenario"):
@@ -180,13 +181,14 @@ def _run_scenario(spec: ExperimentSpec, cfg: vil.VilConfig,
 
     # Per-estimator diagnostics against ground truth.
     times = res.timeline.times
-    gt_fused = vmap(sc.traj.pose_fn)(times)
-    gt_vio, gt_lidar = dev_t(sc.gt_vio_poses), dev_t(sc.gt_lidar_poses)
-    diag_fused = DIAG.diagnostics(times, res.fused.poses, gt_fused)
-    diag_vio = DIAG.diagnostics(dev_t(sc.vio_times), res.vio_out.pose,
-                                gt_vio)
-    diag_lidar = DIAG.diagnostics(dev_t(sc.lidar_times), res.lidar_out.pose,
-                                  gt_lidar)
+    with TR.span("experiments.diagnostics"):
+        gt_fused = vmap(sc.traj.pose_fn)(times)
+        gt_vio, gt_lidar = dev_t(sc.gt_vio_poses), dev_t(sc.gt_lidar_poses)
+        diag_fused = DIAG.diagnostics(times, res.fused.poses, gt_fused)
+        diag_vio = DIAG.diagnostics(dev_t(sc.vio_times), res.vio_out.pose,
+                                    gt_vio)
+        diag_lidar = DIAG.diagnostics(dev_t(sc.lidar_times),
+                                      res.lidar_out.pose, gt_lidar)
 
     # Metric scores of the Hessian series, the gate's log-dets (normalised
     # per correspondence, and raw: raw = normalised + 3·log(n_corr)), and
